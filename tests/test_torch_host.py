@@ -1,0 +1,133 @@
+"""repro_torch's host-side copies against the reference, the import
+boundary, and the device rule.
+
+The numpy-only modules (rng streams, synthetic data, Dirichlet partition,
+capability model) are copies: their arrays must be BYTE-equal to the
+reference's at every seed, because same-seed participant draws, batches and
+plans in the two packages hang off them.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core import rng as R_RNG  # noqa: E402
+from repro.data import partition as R_PART  # noqa: E402
+from repro.data import synthetic as R_SYN  # noqa: E402
+from repro.fl import capability as R_CAP  # noqa: E402
+from repro_torch.core import caesar as T_CA  # noqa: E402
+from repro_torch.core import rng as T_RNG  # noqa: E402
+from repro_torch.data import partition as T_PART  # noqa: E402
+from repro_torch.data import synthetic as T_SYN  # noqa: E402
+from repro_torch.fl import capability as T_CAP  # noqa: E402
+from repro_torch.fl import simulation as T_SIM  # noqa: E402
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+SEEDS = [0, 1, 7]
+
+
+def _same(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+def test_rng_kinds_and_streams_identical():
+    kinds = [k for k in dir(R_RNG) if k.startswith("KIND_")]
+    assert kinds == [k for k in dir(T_RNG) if k.startswith("KIND_")]
+    for k in kinds:
+        assert getattr(R_RNG, k) == getattr(T_RNG, k)
+    for seed in SEEDS:
+        for kind in range(8):
+            a = R_RNG.stream(seed, kind, 3, 5).integers(0, 1 << 62, 16)
+            b = T_RNG.stream(seed, kind, 3, 5).integers(0, 1 << 62, 16)
+            assert _same(a, b)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("name", ["har", "oppo_ts"])
+def test_synthetic_datasets_byte_equal(seed, name):
+    a = R_SYN.DATASETS[name](seed=seed, scale=0.05)
+    b = T_SYN.DATASETS[name](seed=seed, scale=0.05)
+    for f in ("x_train", "y_train", "x_test", "y_test"):
+        assert _same(getattr(a, f), getattr(b, f)), f
+    assert a.n_classes == b.n_classes
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("p", [0.0, 5.0])
+def test_dirichlet_partition_byte_equal(seed, p):
+    y = R_SYN.har_like(seed=seed, scale=0.1).y_train
+    sa, la, va = R_PART.dirichlet_partition(y, 40, p, seed)
+    sb, lb, vb = T_PART.dirichlet_partition(y, 40, p, seed)
+    assert len(sa) == len(sb)
+    assert all(_same(x, z) for x, z in zip(sa, sb))
+    assert _same(la, lb) and _same(va, vb)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_capability_snapshots_byte_equal(seed):
+    a, b = R_CAP.CapabilityModel(50, seed), T_CAP.CapabilityModel(50, seed)
+    for t in (1, 2, 19, 20, 41):
+        for x, z in zip(a.snapshot(t), b.snapshot(t)):
+            assert _same(x, z)
+
+
+@pytest.mark.parametrize("module", ["repro_torch",
+                                    "repro_torch.fl.simulation"])
+def test_port_imports_neither_jax_nor_reference(module):
+    code = (f"import sys; import {module}; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
+            "or m.startswith('repro.')); print(bad); sys.exit(bool(bad))")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=str(SRC)))
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_default_device_is_cuda_and_never_falls_back():
+    cfg = T_SIM.SimConfig(dataset="har", n_clients=12, participation=0.25,
+                          rounds=1, data_scale=0.2)
+    assert cfg.device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-fallback rule is "
+                    "checked where there is none")
+    with pytest.raises(RuntimeError, match="cuda"):
+        T_SIM.Simulator(cfg)
+
+
+_FAST = dict(dataset="har", n_clients=12, participation=0.25, rounds=1,
+             data_scale=0.2, device="cpu")
+
+
+@pytest.mark.parametrize("override,item", [
+    (dict(scheme="fedavg"), "item 12"),
+    (dict(scheme="prowd"), "item 12"),
+    (dict(ragged=False), "item 9"),
+    (dict(buffer_dtype="bfloat16"), "item 9"),
+    (dict(caesar=T_CA.CaesarConfig(use_error_feedback=True)), "item 9"),
+    (dict(state_capacity=8), "item 10"),
+    (dict(sharded=True), "item 13"),
+    (dict(multi_host=True), "item 13"),
+    (dict(wire="loopback"), "item 11"),
+    (dict(availability="diurnal"), "item 11"),
+    (dict(dataset="cifar10"), "item 3"),
+])
+def test_out_of_slice_configs_raise(override, item):
+    cfg = dataclasses.replace(T_SIM.SimConfig(**_FAST), **override)
+    with pytest.raises(NotImplementedError, match=item):
+        T_SIM.Simulator(cfg)
+
+
+def test_state_dict_raises():
+    sim = T_SIM.Simulator(T_SIM.SimConfig(**_FAST))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        sim.state_dict()
+    with pytest.raises(NotImplementedError, match="item 10"):
+        sim.load_state_dict({})

@@ -1,0 +1,196 @@
+"""repro_torch kernels: the plain PyTorch twins against the reference's Pallas
+kernels (interpret mode, as tests/test_kernels.py runs them) and against
+``repro.kernels.ref``; the wrappers' input checks; and, on a card, each CUDA
+kernel against its twin.
+
+Tolerances: histogram counts, thresholds, kept, sign, count, max and the
+recovered values are EXACT (the same f32 operations in the same order per
+element). Σ|x| over the compressed set is held to rtol 1e-5: it is a sum
+of up to n f32 terms taken in another order (XLA's reduce, PyTorch's
+vectorized sum, the kernel's block tree).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as R_OPS  # noqa: E402
+from repro.kernels import ref as R_REF  # noqa: E402
+from repro_torch import kernels as K  # noqa: E402
+from repro_torch.kernels import hybrid_compress as HC  # noqa: E402
+from repro_torch.kernels import recover as RC  # noqa: E402
+from repro_torch.kernels import ref as T_REF  # noqa: E402
+from repro_torch.kernels import topk_threshold as TT  # noqa: E402
+
+SUM_RTOL = 1e-5
+# lengths deliberately not multiples of the TPU kernels' 1024-lane BLOCK
+SHAPES = [(1, 1000), (3, 5000), (4, 3001)]
+
+
+def _x(rows, n, seed):
+    """Seeded inputs with the edge cases the kernels must get right: exact
+    zeros (sign 0, bin 0) and ties at the row maximum (last bin)."""
+    rng = np.random.default_rng(np.random.SeedSequence(seed,
+                                                       spawn_key=(99,)))
+    x = (rng.standard_normal((rows, n)) * 3.0).astype(np.float32)
+    x[:, ::97] = 0.0
+    x[:, 5] = np.abs(x).max(axis=1)
+    x[:, 6] = -x[:, 5]
+    return x
+
+
+@pytest.mark.parametrize("rows,n", SHAPES)
+def test_histogram_twin_matches_pallas_and_ref(rows, n):
+    x = _x(rows, n, 1)
+    mx = np.abs(x).max(axis=1)
+    got = TT.magnitude_histogram(torch.from_numpy(x), torch.from_numpy(mx))
+    assert got.dtype == torch.int32 and got.shape == (rows, 256)
+    for r in range(rows):
+        pallas = np.asarray(R_OPS.magnitude_histogram(
+            jnp.asarray(x[r]), jnp.float32(mx[r]), interpret=True))
+        oracle = np.asarray(R_REF.magnitude_histogram(
+            jnp.asarray(x[r]), 256, jnp.float32(mx[r])))
+        np.testing.assert_array_equal(got[r].numpy(), pallas)
+        np.testing.assert_array_equal(got[r].numpy(), oracle)
+    assert int(got.sum()) == rows * n
+
+
+@pytest.mark.parametrize("rows,n", SHAPES)
+def test_threshold_from_histogram_exact(rows, n):
+    x = _x(rows, n, 2)
+    mx = np.abs(x).max(axis=1)
+    ratio = np.linspace(0.0, 1.0, rows, dtype=np.float32)
+    hist = TT.magnitude_histogram(torch.from_numpy(x), torch.from_numpy(mx))
+    got = T_REF.threshold_from_histogram(hist, torch.from_numpy(mx),
+                                         torch.from_numpy(ratio)).numpy()
+    for r in range(rows):
+        want = np.asarray(R_REF.threshold_from_histogram(
+            jnp.asarray(hist[r].numpy()), jnp.float32(mx[r]),
+            jnp.float32(ratio[r])))
+        assert got[r] == want
+
+
+def _check_compress(got, x_row, thr_r, r):
+    kept, sign, cnt, ssum, smax = got
+    pk, ps, pc, pss, pm = R_OPS.hybrid_compress(
+        jnp.asarray(x_row), jnp.float32(thr_r), interpret=True)
+    rk, rs, rc, rss, rm = R_REF.hybrid_compress(jnp.asarray(x_row),
+                                                jnp.float32(thr_r))
+    for k_ref, s_ref, c_ref, ss_ref, m_ref in ((pk, ps, pc, pss, pm),
+                                               (rk, rs, rc, rss, rm)):
+        np.testing.assert_array_equal(kept[r].numpy(), np.asarray(k_ref))
+        np.testing.assert_array_equal(sign[r].numpy(), np.asarray(s_ref))
+        assert int(cnt[r]) == int(c_ref)
+        assert float(smax[r]) == float(m_ref)
+        np.testing.assert_allclose(float(ssum[r]), float(ss_ref),
+                                   rtol=SUM_RTOL)
+
+
+@pytest.mark.parametrize("rows,n", SHAPES)
+def test_compress_twin_matches_pallas_and_ref(rows, n):
+    x = _x(rows, n, 3)
+    thr = np.linspace(0.0, 4.0, rows, dtype=np.float32)
+    got = HC.hybrid_compress(torch.from_numpy(x), torch.from_numpy(thr))
+    assert got[1].dtype == torch.int8 and got[2].dtype == torch.int32
+    for r in range(rows):
+        _check_compress(got, x[r], thr[r], r)
+
+
+def test_compress_shared_vector_matches_per_row():
+    """The main path compresses ONE global vector at each participant's
+    threshold: a [n] x with [rows] thresholds."""
+    x = _x(1, 4099, 4)[0]
+    thr = np.array([0.0, 0.5, 2.0, 1e9], np.float32)
+    got = HC.hybrid_compress(torch.from_numpy(x), torch.from_numpy(thr))
+    for r in range(len(thr)):
+        _check_compress(got, x, thr[r], r)
+    assert int(got[2][0]) == 0                    # thr=0 compresses nothing
+    assert int(got[2][3]) == x.size               # every |x| < 1e9
+
+
+@pytest.mark.parametrize("rows,n", SHAPES)
+def test_recover_twin_matches_pallas_and_ref(rows, n):
+    x = _x(rows, n, 5)
+    rng = np.random.default_rng(np.random.SeedSequence(5, spawn_key=(98,)))
+    local = (x + rng.standard_normal(x.shape) * 1.5).astype(np.float32)
+    local[:, ::50] = 0.0
+    thr = np.linspace(0.5, 3.0, rows, dtype=np.float32)
+    kept, sign, cnt, ssum, smax = HC.hybrid_compress(torch.from_numpy(x),
+                                                     torch.from_numpy(thr))
+    mean = ssum / torch.clamp(cnt, min=1).float()
+    got = RC.recover(kept, sign, torch.from_numpy(local), mean, smax).numpy()
+    for r in range(rows):
+        args = (jnp.asarray(kept[r].numpy()), jnp.asarray(sign[r].numpy()),
+                jnp.asarray(local[r]), jnp.float32(mean[r]),
+                jnp.float32(smax[r]))
+        np.testing.assert_array_equal(
+            got[r], np.asarray(R_OPS.recover(*args, interpret=True)))
+        np.testing.assert_array_equal(got[r], np.asarray(R_REF.recover(*args)))
+
+
+def test_cpu_tensors_take_the_twin_and_count_no_launch():
+    K.reset_launch_counts()
+    x = torch.from_numpy(_x(2, 1000, 6))
+    mx = torch.amax(x.abs(), dim=-1)
+    TT.magnitude_histogram(x, mx)
+    kept, sign, cnt, ssum, smax = HC.hybrid_compress(x, mx * 0.5)
+    RC.recover(kept, sign, x, ssum / cnt.float(), smax)
+    assert K.launch_counts() == {"magnitude_histogram": 0,
+                                 "hybrid_compress": 0, "recover": 0}
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    x = torch.from_numpy(_x(2, 100, 7))
+    mx = torch.amax(x.abs(), dim=-1)
+    with pytest.raises(TypeError):
+        TT.magnitude_histogram(x.double(), mx)
+    with pytest.raises(ValueError):
+        TT.magnitude_histogram(x[0], mx[:1])          # not [rows, n]
+    with pytest.raises(ValueError):
+        TT.magnitude_histogram(x.t().contiguous().t(), mx)
+    with pytest.raises(ValueError):
+        HC.hybrid_compress(x, mx[:1])                 # rows mismatch
+    with pytest.raises(TypeError):
+        HC.hybrid_compress(x.half(), mx)
+    kept, sign, cnt, ssum, smax = HC.hybrid_compress(x, mx)
+    with pytest.raises(TypeError):
+        RC.recover(kept, sign.int(), x, ssum, smax)
+    with pytest.raises(ValueError):
+        RC.recover(kept, sign, x[:1], ssum, smax)
+
+
+# --- on the card: each kernel against its twin ------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", SHAPES + [(25, 164134)])
+def test_cuda_kernels_match_twins(cuda, rows, n):
+    x = torch.from_numpy(_x(rows, n, 8)).to(cuda)
+    mx = torch.amax(x.abs(), dim=-1)
+    before = K.launch_counts()
+    assert torch.equal(TT.magnitude_histogram(x, mx),
+                       TT.magnitude_histogram_plain(x, mx))
+    thr = mx * torch.linspace(0.0, 0.9, rows, device=cuda)
+    for src in (x, x[0].contiguous()):
+        ck = HC.hybrid_compress(src, thr)
+        cp = HC.hybrid_compress_plain(src, thr)
+        for i in (0, 1, 2, 4):
+            assert torch.equal(ck[i], cp[i])
+        torch.testing.assert_close(ck[3], cp[3], rtol=SUM_RTOL, atol=0.0)
+    kept, sign, cnt, ssum, smax = ck
+    mean = ssum / torch.clamp(cnt, min=1).float()
+    local = x * 0.9
+    assert torch.equal(RC.recover(kept, sign, local, mean, smax),
+                       RC.recover_plain(kept, sign, local, mean, smax))
+    after = K.launch_counts()
+    assert after["magnitude_histogram"] == before["magnitude_histogram"] + 1
+    assert after["hybrid_compress"] == before["hybrid_compress"] + 2
+    assert after["recover"] == before["recover"] + 1
