@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Track-A Caesar round on one NVIDIA card.
+"""Drive the PyTorch port's two paths on one NVIDIA card: the Track-A
+Caesar round, and serving Qwen1.5-4B at full width.
 
     python3 chip_smoke.py
 
@@ -7,19 +8,35 @@ Run from the root of a checkout on a machine with a CUDA card (and nvcc).
 Phases, each of which fails the script on any error:
 
 1. environment: the card's name and power limit (nvidia-smi); TF32 off;
-2. build: compiles the three CUDA kernels from src/repro_torch/kernels/csrc;
-3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (n = 164,134; 1 row and a chunk of rows), with
-   CUDA-event timings of kernel, plain version and, for the histogram,
-   torch.histc as a yardstick, beside the bytes bound at 3.35 TB/s;
-4. parity: the small HAR config (12 clients) on cuda and on cpu within
+2. build: compiles the four CUDA kernels from src/repro_torch/kernels/csrc,
+   one nvcc per source, all at once;
+3. kernels: each compression kernel against its plain PyTorch version on
+   the card at the round's shapes (n = 164,134; 1 row and a chunk of rows),
+   with CUDA-event timings of kernel, plain version and, for the
+   histogram, torch.histc as a yardstick, beside the bytes bound at
+   3.35 TB/s;
+4. decode kernel: flash decode against its plain version at the serve
+   shape (B=4, H=Hkv=20, D=128, S=48, bf16, every length 1..48), the
+   serve example's direct call (B=2, H=8, Hkv=4, D=64, S=2048, f32) and a
+   long cache at full width (S=4096, bf16), timed beside the bytes bound
+   and torch's scaled_dot_product_attention with a length mask (a
+   yardstick only; the port never calls it);
+5. parity: the small HAR config (12 clients) on cuda and on cpu within
    the port from one initial vector — participants, plans and sim_time
    identical, the global vector within a stated tolerance; and pipelined
    vs synchronous on cuda bit-identical (deterministic kernels and cuDNN);
-5. main path: the dense HAR point (1000 clients, participation 0.5,
+6. round path: the dense HAR point (1000 clients, participation 0.5,
    τ = 5, b_max = 32, 4 rounds) with the launch counters zeroed just
    before and read just after — each must equal what the tier layout
-   implies; then a profiled 2-round rerun for the time breakdown.
+   implies; then a profiled 1-round rerun for the time breakdown;
+7. serve path: Qwen1.5-4B at full width (40 layers, d_model 2560, bf16,
+   random weights from a seeded generator on the card), 4 prompts × 16
+   tokens then 32 greedy tokens, with the counters zeroed just before and
+   read just after — the decode kernel must launch n_layers × 47 times;
+   kernel-path vs plain-path logits over a teacher-forced sequence and
+   decode vs prefill logits within stated tolerances; a warm rerun for
+   latency, and 10 teacher-forced decode steps timed and then profiled
+   for the device's busy share.
 
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. It exits non-zero without a CUDA device
@@ -43,6 +60,24 @@ N_PARAMS = 164134                # cnn_har
 CHUNK = 25                       # auto_chunk at the dense HAR point
 SUM_RTOL = 1e-5                  # kernel vs plain Σ|x|: summation order
 PARITY_REL_L2 = 1e-4             # cuda vs cpu global vector after 3 rounds
+# decode kernel vs its plain version (the reference's own tolerances):
+# f32 — the online softmax sums in another order; bf16 — one bf16 ulp of
+# the output is 2^-8 relative
+DECODE_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+SERVE_ARCH = "qwen1.5-4b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 16, 32
+# serve-path logits, bf16 model, relative L2 per step over [B, vocab].
+# Two bf16 evaluations of the same function differ by this model's bf16
+# noise floor: kernel and plain paths differ where one attention output
+# rounds to the other bf16 neighbour (unit roundoff 2^-9), decode and
+# prefill in every matmul's summation order, and 40 random layers amplify
+# either to ~2e-2 (measured on the H100: kernel vs plain 0.0188, decode
+# vs prefill 0.0199 and 0.0195). The bound is 2.5× that floor; a wrong
+# mask, scale or head grouping moves whole attention outputs and the
+# logits by O(1). Greedy tokens must agree on most steps besides.
+SERVE_REL_L2 = 5e-2
+SERVE_ARGMAX_AGREE = 0.9
+PROFILE_STEPS = 10               # decode steps in the serve profile window
 
 
 def check(cond: bool, msg: str) -> None:
@@ -184,6 +219,84 @@ def phase_kernels(torch, K, timer):
     return results
 
 
+def _sdpa(torch, q, k, v, mask):
+    """torch's scaled_dot_product_attention on the decode kernel's layout
+    (q [B,H,D], cache [B,S,Hkv,D]) with a boolean length mask [B,1,1,S]."""
+    import torch.nn.functional as F
+    h, hkv = q.shape[1], k.shape[2]
+    return F.scaled_dot_product_attention(
+        q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=h != hkv)[:, :, 0, :]
+
+
+DECODE_SHAPES = {
+    # name: (B, H, Hkv, D, S, dtype, lengths)
+    "serve": (4, 20, 20, 128, 48, "bfloat16", None),
+    "example": (2, 8, 4, 64, 2048, "float32", (2048, 1024)),
+    "long": (4, 20, 20, 128, 4096, "bfloat16", None),
+}
+
+
+def phase_decode(torch, timer):
+    """The flash-decode kernel vs its plain version on the card."""
+    from repro_torch.kernels import flash_attention as FA
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    results = {}
+    for name, (b, h, hkv, d, s, dt, lens) in DECODE_SHAPES.items():
+        dtype = getattr(torch, dt)
+        q = torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+        tol = DECODE_TOL[dt]
+        # correctness: the given lengths, or every length 1..S in turn
+        sweeps = ([lens] if lens else
+                  [[min(s, i + j) for j in range(b)]
+                   for i in range(1, s + 1, b)])
+        err = 0.0
+        for lv in sweeps:
+            length = torch.tensor(lv, dtype=torch.int32, device=dev)
+            got = FA.decode_attention(q, k, v, length)
+            want = FA.decode_attention_plain(q, k, v, length)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            check(bool((diff <= tol + tol * want.float().abs()).all()),
+                  f"decode {name} lengths {lv}: kernel vs plain outside "
+                  f"{tol} (max {float(diff.max()):.3g})")
+            check(torch.equal(FA.decode_attention(q, k, v, length), got),
+                  f"decode {name}: two runs on the same input differ")
+            err = max(err, float(diff.max()))
+        # timing at the full cache (the serve loop's last step) or the
+        # example's lengths
+        lv = list(lens) if lens else [s] * b
+        length = torch.tensor(lv, dtype=torch.int32, device=dev)
+        mask = (torch.arange(s, device=dev)[None, :] < length[:, None]
+                )[:, None, None, :]
+        lib_out = _sdpa(torch, q, k, v, mask)
+        want = FA.decode_attention_plain(q, k, v, length)
+        lib_err = float((lib_out.float() - want.float()).abs().max())
+        ms = timer.ms(lambda: FA.decode_attention(q, k, v, length))
+        plain = timer.ms(lambda: FA.decode_attention_plain(q, k, v, length))
+        lib = timer.ms(lambda: _sdpa(torch, q, k, v, mask))
+        es = q.element_size()
+        valid = sum(min(x, s) for x in lv)
+        bytes_moved = (2 * b * h * d * es + 2 * valid * hkv * d * es
+                       + 4 * b)
+        flops = 4.0 * valid * h * d
+        bms, by = _bound(bytes_moved, flops)
+        results[name] = dict(
+            shape=f"q[{b},{h},{d}] kv[{b},{s},{hkv},{d}] {dt} "
+                  f"lengths {lv if len(lv) <= 4 else 'full'}",
+            max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+            library_max_abs_err=lib_err, bound_ms=bms, bound_by=by,
+            n_split=FA.split_plan(b, h, hkv, s,
+                                  torch.cuda.get_device_properties(0)
+                                  .multi_processor_count)[1])
+        print(f"kernel decode_attention {name}: " + json.dumps(results[name]))
+    return results
+
+
 def phase_parity(torch, SimConfig, Simulator, CaesarConfig):
     """The fast HAR config on cuda and on cpu from one initial vector."""
     from repro_torch.models.paper_models import cnn_har_init
@@ -258,45 +371,190 @@ def phase_main(torch, K, SimConfig, Simulator, CaesarConfig):
     return cfg, counts, out
 
 
-def phase_profile(torch, cfg, Simulator, wall_per_round):
-    """Where the dense point's round time goes: a 2-round rerun under
-    torch.profiler. Device time is summed over CUDA kernel events only
-    (operator rows would count their kernels twice); the busy share is
-    that kernel time per round over the UNPROFILED median wall of the
-    main run's rounds after the first."""
+def _profile_kernels(torch, fn, table_name):
+    """CUDA kernel events of one call of ``fn`` under torch.profiler, CUDA
+    activity only (the CPU operator events would only slow the trace),
+    sorted by device time, and their total device seconds. The table goes
+    to chiprun_out/<table_name>."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    sim = Simulator(dataclasses.replace(cfg, rounds=2))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sim.run()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
-    kernels = [ev for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA
+    events = prof.key_averages()
+    kernels = [ev for ev in events if ev.device_type == DeviceType.CUDA
                and not getattr(ev, "is_user_annotation", False)]
     check(bool(kernels), "the profiler recorded no CUDA kernel")
-    total_us = sum(ev.self_device_time_total for ev in kernels)
     kernels.sort(key=lambda ev: ev.self_device_time_total, reverse=True)
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "profile_dense_har.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total",
-                                          row_limit=60))
-    per_round = total_us / 1e6 / 2
+    with open(os.path.join(OUT_DIR, table_name), "w") as f:
+        f.write(events.table(sort_by="self_device_time_total", row_limit=40))
+    return kernels, sum(ev.self_device_time_total for ev in kernels) / 1e6
+
+
+def phase_profile(torch, cfg, Simulator, wall_per_round):
+    """Where the dense point's round time goes: a 1-round rerun under
+    torch.profiler. Device time is summed over CUDA kernel events only;
+    the busy share is that kernel time per round over the UNPROFILED
+    median wall of the main run's rounds after the first."""
+    sim = Simulator(dataclasses.replace(cfg, rounds=1))
+    kernels, per_round = _profile_kernels(torch, sim.run,
+                                          "profile_dense_har.txt")
     warm = sorted(wall_per_round[1:] or wall_per_round)
     wall = warm[len(warm) // 2]
     out = {"device_kernel_s_per_round": per_round,
            "median_round_wall_s": wall,
            "device_busy_share": per_round / wall,
            "top_kernels": [{"name": ev.key[:90],
-                            "ms_per_round": ev.self_device_time_total / 2e3,
-                            "launches_per_round": ev.count / 2}
+                            "ms_per_round": ev.self_device_time_total / 1e3,
+                            "launches_per_round": ev.count}
                            for ev in kernels[:15]]}
     print("profile (dense HAR, per round): " + json.dumps(out))
     return out
 
 
+def _rel_l2(torch, a, b) -> float:
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def _teacher_forced(torch, M, params, cfg, seq):
+    """Logits [steps, B, V] (f32) of decode_step fed seq [B, T] token by
+    token, T − 1 steps."""
+    b, t = seq.shape
+    cache = M.init_cache(cfg, b, t)
+    length = torch.zeros(b, dtype=torch.int32, device=seq.device)
+    out = []
+    for i in range(t - 1):
+        logits, cache = M.decode_step(params, cache,
+                                      {"tokens": seq[:, i:i + 1]}, length,
+                                      cfg)
+        out.append(logits.float())
+        length = length + 1
+    return torch.stack(out)
+
+
+def phase_serve(torch, K):
+    """Qwen1.5-4B at full width through the port's serve entry points."""
+    import repro_torch.configs as configs
+    from repro_torch.core import rng as RNG
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import model as M
+
+    cfg = configs.get(SERVE_ARCH)
+    check(cfg.n_layers == 40 and cfg.d_model == 2560 and cfg.vocab == 151936,
+          "the serve phase must run the published width")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in _leaves(params))
+    prompt = torch.from_numpy(RNG.stream(0, RNG.KIND_DATASET).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).to(dev, torch.int32)
+    steps = SERVE_PROMPT + SERVE_NEW - 1
+
+    # the serve path, counted
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = M.generate(params, cfg, prompt, SERVE_NEW)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    want = cfg.n_layers * steps
+    print("serve path launches: " + json.dumps(counts) + f" expected "
+          f"decode_attention {want}")
+    check(counts["decode_attention"] == want,
+          f"decode_attention launched {counts['decode_attention']} times, "
+          f"want n_layers × steps = {want}")
+    check(all(n == 0 for k, n in counts.items() if k != "decode_attention"),
+          "a compression kernel launched on the serve path")
+    check(tuple(out.shape) == (SERVE_BATCH, SERVE_NEW), "bad output shape")
+    check(bool(((out >= 0) & (out < cfg.vocab)).all()), "token out of range")
+
+    # warm reruns: latency and throughput (same seed, same tokens)
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        again = M.generate(params, cfg, prompt, SERVE_NEW)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check(torch.equal(again, out), "same-seed reruns differ")
+    wall = sum(walls) / len(walls)
+
+    # kernel path vs plain path over one teacher-forced sequence
+    seq = torch.cat([prompt, out], dim=1)
+    via_kernel = _teacher_forced(torch, M, params, cfg, seq)
+    M.decode_attention = FA.decode_attention_plain
+    try:
+        via_plain = _teacher_forced(torch, M, params, cfg, seq)
+    finally:
+        M.decode_attention = FA.decode_attention
+    check(bool(torch.isfinite(via_kernel).all()), "non-finite logits")
+    rel = [_rel_l2(torch, a, b) for a, b in zip(via_kernel, via_plain)]
+    agree = float((via_kernel.argmax(-1) == via_plain.argmax(-1)).float()
+                  .mean())
+    # decode vs prefill over the same tokens (last position)
+    pre = M.prefill(params, {"tokens": seq[:, :steps]}, cfg)
+    rel_pre = _rel_l2(torch, via_kernel[-1], pre)
+    plain_pre = _rel_l2(torch, via_plain[-1], pre)
+
+    # device busy share over a window of PROFILE_STEPS decode steps: the
+    # same teacher-forced steps unprofiled (wall) and profiled (kernels)
+    window = seq[:, :PROFILE_STEPS + 1]
+    t0 = time.perf_counter()
+    _teacher_forced(torch, M, params, cfg, window)
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    kernels, dev_s = _profile_kernels(
+        torch, lambda: _teacher_forced(torch, M, params, cfg, window),
+        "profile_serve.txt")
+    res = {
+        "arch": cfg.name, "n_params": n_params, "init_s": init_s,
+        "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
+        "new_tokens": SERVE_NEW, "decode_steps": steps,
+        "cold_wall_s": cold_s, "warm_walls_s": walls,
+        "ms_per_step": wall / steps * 1e3,
+        "tokens_per_s": SERVE_BATCH * SERVE_NEW / wall,
+        "decode_tokens_per_s": SERVE_BATCH * steps / wall,
+        "profile_steps": PROFILE_STEPS, "window_wall_s": window_s,
+        "device_s_per_step": dev_s / PROFILE_STEPS,
+        "device_busy_share": dev_s / window_s,
+        "kernel_vs_plain_rel_l2_max": max(rel),
+        "kernel_vs_plain_rel_l2_median": sorted(rel)[len(rel) // 2],
+        "kernel_vs_plain_rel_l2_per_step": rel,
+        "kernel_vs_plain_argmax_agree": agree,
+        "decode_vs_prefill_rel_l2": rel_pre,
+        "plain_decode_vs_prefill_rel_l2": plain_pre,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "sample": out[0, :16].tolist(),
+        "top_kernels": [{"name": ev.key[:90],
+                         "ms": ev.self_device_time_total / 1e3,
+                         "launches": ev.count} for ev in kernels[:12]],
+    }
+    print("serve path: " + json.dumps(res))
+    check(max(rel) <= SERVE_REL_L2, f"kernel vs plain logits rel L2 "
+          f"{max(rel):.3g} > {SERVE_REL_L2}")
+    check(agree >= SERVE_ARGMAX_AGREE, f"kernel vs plain greedy tokens "
+          f"agree on {agree:.3f} < {SERVE_ARGMAX_AGREE} of steps")
+    check(rel_pre <= SERVE_REL_L2, f"decode vs prefill logits rel L2 "
+          f"{rel_pre:.3g} > {SERVE_REL_L2}")
+    return counts, res
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -331,14 +589,27 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
 
+    phase_s = {"build": time.perf_counter() - t0}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+        return out
+
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device="cuda")
-    kres = phase_kernels(torch, K, _Timer(torch, flush))
+    kres = timed("kernels", phase_kernels, torch, K, _Timer(torch, flush))
+    dres = timed("decode_kernel", phase_decode, torch,
+                 _Timer(torch, flush, windows=11))
     del flush
-    parity = phase_parity(torch, SimConfig, Simulator, CaesarConfig)
-    cfg, counts, main_out = phase_main(torch, K, SimConfig, Simulator,
-                                       CaesarConfig)
-    prof = phase_profile(torch, cfg, Simulator,
-                         main_out["wall_per_round_s"])
+    parity = timed("parity", phase_parity, torch, SimConfig, Simulator,
+                   CaesarConfig)
+    cfg, counts, main_out = timed("round_path", phase_main, torch, K,
+                                  SimConfig, Simulator, CaesarConfig)
+    prof = timed("round_profile", phase_profile, torch, cfg, Simulator,
+                 main_out["wall_per_round_s"])
+    serve_counts, serve = timed("serve_path", phase_serve, torch, K)
 
     replaces = {
         "magnitude_histogram": "src/repro/kernels/topk_threshold.py:34",
@@ -358,13 +629,28 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": f"[{rows}, {N_PARAMS}]"})
+    r = dres["serve"]
+    kernels.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/"
+                  f"{build.SOURCES['decode_attention']}",
+        "replaces": "src/repro/kernels/flash_attention.py:25",
+        "launches": serve_counts["decode_attention"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "shape": r["shape"]})
+    phase_s["total"] = time.perf_counter() - t_start
+    print("phase seconds: " + json.dumps(phase_s))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "build_s": build_s,
                    "kernels_all_shapes": {f"{k[0]}[rows={k[1]}]": v
                                           for k, v in kres.items()},
+                   "decode_all_shapes": dres,
                    "parity": parity, "main": main_out, "profile": prof,
-                   "kernels": kernels}, f, indent=1)
+                   "serve": serve, "phase_s": phase_s, "kernels": kernels},
+                  f, indent=1)
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,11 @@
+"""Phi-4-mini 3.8B [arXiv:2412.08905; hf]: RoPE + SwiGLU + GQA.
+
+Assignment: 32L d_model=3072 24H (GQA kv=8) d_ff=8192 vocab=200064.
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi4-mini-3.8b", family="dense",
+    n_layers=32, d_model=3072, n_heads=24, n_kv_heads=8, d_head=128,
+    d_ff=8192, vocab=200064,
+)

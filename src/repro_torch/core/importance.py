@@ -11,10 +11,21 @@ import torch
 
 
 def kl_to_uniform(label_dist: torch.Tensor) -> torch.Tensor:
-    """Eq. 4: D_i = KL(Φ_i ‖ uniform) per device. label_dist [n, H] f32."""
+    """Eq. 4: D_i = KL(Φ_i ‖ uniform) per device. label_dist [n, H] f32.
+
+    The H terms are summed as a left fold, ((t0 + t1) + t2) + …, which is
+    the order of XLA's f32 row reduction in the reference at these widths.
+    ``torch.sum`` adds in another order and can round a row one ulp away;
+    clients whose importances tie in exact arithmetic then swap upload
+    ranks. With the fold, KL equals the reference's bit for bit wherever
+    the two frameworks' f32 ``log`` agree."""
     h = label_dist.shape[-1]
     e = torch.clamp(label_dist, 1e-12, 1.0)
-    return torch.sum(e * torch.log(e * h), dim=-1)
+    terms = e * torch.log(e * h)
+    kl = terms[..., 0]
+    for j in range(1, h):
+        kl = kl + terms[..., j]
+    return kl
 
 
 def importance(volumes: torch.Tensor, label_dist: torch.Tensor,

@@ -2,7 +2,9 @@
 
 * `topk_threshold.magnitude_histogram` — 256-bin |x| histogram per row;
 * `hybrid_compress.hybrid_compress` — Fig.-3 sender, one threshold per row;
-* `recover.recover` — Fig.-3 receiver, scalars per row.
+* `recover.recover` — Fig.-3 receiver, scalars per row;
+* `flash_attention.decode_attention` — single-query GQA flash decode over a
+  KV cache with a length mask (the serve path).
 
 Each wrapper dispatches on its input's device (CUDA → kernel, CPU → twin
 in `ref`) and counts its kernel launches in a plain integer attribute
@@ -11,6 +13,7 @@ Kernels are built from ``csrc/`` at first use (see `build`).
 """
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hybrid_compress as _hc
 from repro_torch.kernels import recover as _rc
 from repro_torch.kernels import topk_threshold as _tt
@@ -19,6 +22,7 @@ WRAPPERS = {
     "magnitude_histogram": _tt.magnitude_histogram,
     "hybrid_compress": _hc.hybrid_compress,
     "recover": _rc.recover,
+    "decode_attention": _fa.decode_attention,
 }
 
 

@@ -27,6 +27,7 @@ SOURCES = {
     "magnitude_histogram": "magnitude_histogram.cu",
     "hybrid_compress": "hybrid_compress.cu",
     "recover": "recover.cu",
+    "decode_attention": "decode_attention.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

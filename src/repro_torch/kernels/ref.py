@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the port's CUDA kernels, batched over rows.
+"""Plain PyTorch versions of the port's CUDA kernels.
 
-Each function computes exactly what its kernel computes, on the same
-``[rows, n]`` batch with one scalar per row. They are the CPU path (the
-wrappers in this package call them for CPU tensors) and the kernels' first
-oracle (``chip_smoke.py`` compares each kernel with its twin on the card).
-They mirror ``repro.kernels.ref`` op for op, one row at a time.
+Each compression function computes exactly what its kernel computes, on
+the same ``[rows, n]`` batch with one scalar per row; `decode_attention`
+takes the decode kernel's ``[B, H, D]`` query and ``[B, S, Hkv, D]`` cache.
+They are the CPU path (the wrappers in this package call them for CPU
+tensors) and the kernels' first oracle (``chip_smoke.py`` compares each
+kernel with its twin on the card). They mirror ``repro.kernels.ref`` op
+for op.
 
 Divisions are written tensor / tensor: ``python_scalar / tensor`` is
 ``reciprocal() * scalar`` in PyTorch, which rounds differently from the
@@ -34,8 +36,13 @@ def magnitude_histogram(x: torch.Tensor, max_abs: torch.Tensor
     idx = (x.abs() * scale[:, None]).to(torch.int32).clamp_(0, N_BINS - 1)
     flat = idx.to(torch.int64) + torch.arange(
         rows, device=x.device, dtype=torch.int64)[:, None] * N_BINS
-    hist = torch.bincount(flat.reshape(-1), minlength=rows * N_BINS)
-    return hist.view(rows, N_BINS).to(torch.int32)
+    # integer index_add_, not bincount: bincount reads its input's maximum
+    # back to the host, which stalls the host on every call on the card
+    hist = torch.zeros(rows * N_BINS, dtype=torch.int32, device=x.device)
+    hist.index_add_(0, flat.reshape(-1),
+                    torch.ones(flat.numel(), dtype=torch.int32,
+                               device=x.device))
+    return hist.view(rows, N_BINS)
 
 
 def threshold_from_cdf(cdf: torch.Tensor, max_abs: torch.Tensor,
@@ -85,3 +92,31 @@ def recover(kept: torch.Tensor, sign: torch.Tensor, local: torch.Tensor,
     mag_bad = local.abs() > max_abs[:, None]
     approx = torch.where(sign_bad | mag_bad, sgn * mean_abs[:, None], local)
     return torch.where(sign != 0, approx, kept)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     length: torch.Tensor | None = None) -> torch.Tensor:
+    """Single-token decode attention, as ``repro.kernels.ref.decode_attention``.
+
+    q [B, H, D]; k/v [B, S, Hkv, D]; length [B] valid cache length (1..S).
+    Query head h reads kv head h // (H/Hkv). f32 softmax, output in q's
+    dtype; positions ≥ length are masked with -inf."""
+    b, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    group = h // hkv
+    qg = q.reshape(b, hkv, group, d).to(torch.float32)
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    # made on the device: a host scalar copied there would wait for the
+    # stream (a pageable copy), and ``/ python_float`` may multiply by the
+    # reciprocal instead of dividing
+    sqrt_d = torch.sqrt(torch.full((), float(d), dtype=torch.float32,
+                                   device=q.device))
+    logits = torch.einsum("bhgd,bshd->bhgs", qg, kf) / sqrt_d
+    if length is not None:
+        pos = torch.arange(s, device=q.device)[None, None, None, :]
+        logits = torch.where(pos < length[:, None, None, None], logits,
+                             float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, vf)
+    return out.reshape(b, h, d).to(q.dtype)

@@ -1,0 +1,210 @@
+"""repro_torch decode attention: the plain twin (``kernels.ref``), the kernel
+wrapper's CPU route and the model's plain decode function against the
+reference's oracle (``repro.kernels.ref.decode_attention``), its jnp decode
+path (``repro.models.layers.decode_attention_jnp``) and its Pallas kernel in
+interpret mode (``repro.kernels.ops.decode_attention``); the wrapper's input
+checks and split plan; and, on a card, the CUDA kernel against its twin.
+
+Inputs are made with numpy from a seed. Tolerances are the reference's own
+(tests/test_kernels.py): f32 rtol = atol = 3e-5 (the two softmaxes sum in
+other orders; an online softmax rescales its partial sums), bf16 2e-2 (one
+bf16 ulp of the output is 2^-8 relative).
+"""
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import ml_dtypes  # noqa: E402
+
+from repro.kernels import ops as R_OPS  # noqa: E402
+from repro.kernels import ref as R_REF  # noqa: E402
+from repro.models import layers as R_L  # noqa: E402
+from repro_torch import kernels as K  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import ref as T_REF  # noqa: E402
+from repro_torch.models import layers as T_L  # noqa: E402
+
+F32_TOL = 3e-5
+BF16_TOL = 2e-2
+
+
+def _inputs(b, h, hkv, d, s, seed, lengths=None):
+    rng = np.random.default_rng(np.random.SeedSequence(seed,
+                                                       spawn_key=(98,)))
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    if lengths is None:
+        lengths = rng.integers(1, s + 1, b)
+        lengths[0] = s                      # the full cache is always in
+        if b > 1:
+            lengths[-1] = 1                 # and a single valid position
+    return q, k, v, np.asarray(lengths, np.int32)
+
+
+def _port(fn, q, k, v, length, dtype=torch.float32):
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
+            for x in (q, k, v)]
+    return fn(*args, torch.from_numpy(length)).to(torch.float32).numpy()
+
+
+def _bf16(x):
+    """numpy f32 → the bf16 values both frameworks see."""
+    return np.asarray(x, np.float32).astype(ml_dtypes.bfloat16)
+
+
+PORT_FNS = {"twin": T_REF.decode_attention, "wrapper": FA.decode_attention,
+            "layers_plain": T_L.decode_attention_plain}
+
+# the shapes of tests/test_kernels.py (b, h, hkv, d, s, kv_block), plus
+# groups G = H/Hkv of 3 and 4 (the reference's shapes have G = 2, 4, 1)
+PALLAS_SHAPES = [
+    (2, 8, 4, 64, 1024, 256),
+    (1, 4, 1, 128, 512, 128),
+    (3, 6, 6, 32, 768, 256),
+    (2, 6, 2, 32, 512, 256),
+    (3, 8, 2, 64, 512, 128),
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_outputs(b, h, hkv, d, s, blk):
+    """(inputs, {name: reference output}) — computed once per shape."""
+    q, k, v, length = _inputs(b, h, hkv, d, s, seed=b * 100 + h + d)
+    jq, jk, jv, jl = map(jnp.asarray, (q, k, v, length))
+    want = {"pallas": R_OPS.decode_attention(jq, jk, jv, jl, kv_block=blk,
+                                             interpret=True),
+            "ref": R_REF.decode_attention(jq, jk, jv, jl),
+            "jnp": R_L.decode_attention_jnp(jq, jk, jv, jl)}
+    return (q, k, v, length), {n: np.asarray(w) for n, w in want.items()}
+
+
+@pytest.mark.parametrize("fn", list(PORT_FNS))
+@pytest.mark.parametrize("b,h,hkv,d,s,blk", PALLAS_SHAPES)
+def test_f32_matches_pallas_ref_and_jnp(fn, b, h, hkv, d, s, blk):
+    inputs, want = _reference_outputs(b, h, hkv, d, s, blk)
+    got = _port(PORT_FNS[fn], *inputs)
+    for name, w in want.items():
+        np.testing.assert_allclose(got, w, rtol=F32_TOL, atol=F32_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("fn", list(PORT_FNS))
+def test_bf16_matches_pallas_ref_and_jnp(fn):
+    """The reference's bf16 test shape and lengths."""
+    q, k, v, length = _inputs(2, 8, 4, 64, 512, seed=11,
+                              lengths=[512, 300])
+    q, k, v = _bf16(q), _bf16(k), _bf16(v)
+    got = _port(PORT_FNS[fn], q.astype(np.float32), k.astype(np.float32),
+                v.astype(np.float32), length, dtype=torch.bfloat16)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    jl = jnp.asarray(length)
+    for name, want in (
+            ("pallas", R_OPS.decode_attention(jq, jk, jv, jl, kv_block=128,
+                                              interpret=True)),
+            ("ref", R_REF.decode_attention(jq, jk, jv, jl)),
+            ("jnp", R_L.decode_attention_jnp(jq, jk, jv, jl))):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   rtol=BF16_TOL, atol=BF16_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g", [1, 2, 3, 4])
+def test_every_length_of_a_ragged_cache_matches_jnp(g, dtype):
+    """S = 48 (the serve path's prompt + new tokens) is no multiple of the
+    Pallas kernel's 512-position block, which asserts it; so these compare
+    with the jnp decode path and the oracle only. One row per length 1..S."""
+    s, hkv, d = 48, 2, 32
+    q, k, v, length = _inputs(s, g * hkv, hkv, d, s, seed=g,
+                              lengths=np.arange(1, s + 1))
+    tol = F32_TOL
+    tdt = torch.float32
+    if dtype == "bfloat16":
+        q, k, v = (_bf16(x).astype(np.float32) for x in (q, k, v))
+        tol, tdt = BF16_TOL, torch.bfloat16
+    jargs = [jnp.asarray(x, dtype) for x in (q, k, v)] + [jnp.asarray(length)]
+    for fn in PORT_FNS.values():
+        got = _port(fn, q, k, v, length, dtype=tdt)
+        for want in (R_L.decode_attention_jnp(*jargs),
+                     R_REF.decode_attention(*jargs)):
+            np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                       rtol=tol, atol=tol)
+
+
+def test_cpu_route_is_the_twin_and_counts_no_launch():
+    q, k, v, length = _inputs(2, 4, 2, 32, 40, seed=3)
+    t = [torch.from_numpy(x) for x in (q, k, v, length)]
+    K.reset_launch_counts()
+    assert torch.equal(FA.decode_attention(*t), FA.decode_attention_plain(*t))
+    assert K.launch_counts()["decode_attention"] == 0
+    assert K.WRAPPERS["decode_attention"] is FA.decode_attention
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v, length = (torch.from_numpy(x)
+                       for x in _inputs(2, 6, 4, 32, 16, seed=4))
+    with pytest.raises(ValueError, match="multiple"):
+        FA.decode_attention(q, k, v, length)            # H % Hkv != 0
+    q, k, v, length = (torch.from_numpy(x)
+                       for x in _inputs(2, 4, 2, 32, 16, seed=4))
+    with pytest.raises(TypeError):
+        FA.decode_attention(q.double(), k.double(), v.double(), length)
+    with pytest.raises(TypeError):
+        FA.decode_attention(q, k.bfloat16(), v, length)
+    with pytest.raises(TypeError):
+        FA.decode_attention(q, k, v, length.long())
+    with pytest.raises(ValueError):
+        FA.decode_attention(q, k, v, length[:1])
+    with pytest.raises(ValueError):
+        FA.decode_attention(q[:, :, :16], k, v, length)
+    with pytest.raises(ValueError):
+        FA.decode_attention(q, k, v[:, :8], length)
+    with pytest.raises(ValueError):
+        FA.decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                            v, length)
+
+
+@pytest.mark.parametrize("b,h,hkv,s", [(4, 20, 20, 48), (4, 20, 20, 4096),
+                                       (2, 8, 4, 2048), (1, 4, 1, 100_000),
+                                       (64, 32, 8, 1)])
+def test_split_plan_covers_the_cache(b, h, hkv, s):
+    chunk, n_split = FA.split_plan(b, h, hkv, s, 132)
+    assert chunk % 32 == 0 and chunk >= FA.MIN_CHUNK
+    assert chunk * n_split >= s > chunk * (n_split - 1)
+    if s <= FA.MIN_CHUNK:
+        assert n_split == 1
+
+
+# --- on the card: the kernel against its twin --------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,hkv,d,s", [
+    (4, 20, 20, 128, 48), (2, 8, 4, 64, 2048), (4, 20, 20, 128, 4096),
+    (3, 12, 4, 96, 777), (5, 10, 2, 32, 300), (2, 16, 2, 256, 1500)])
+def test_cuda_kernel_matches_twin(cuda, dtype, b, h, hkv, d, s):
+    q, k, v, length = _inputs(b, h, hkv, d, s, seed=s + d)
+    tdt = getattr(torch, dtype)
+    args = [torch.from_numpy(x).to(cuda, tdt) for x in (q, k, v)]
+    args.append(torch.from_numpy(length).to(cuda))
+    before = K.launch_counts()["decode_attention"]
+    got = FA.decode_attention(*args)
+    want = FA.decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["decode_attention"] == before + 1
+    assert got.dtype == tdt and got.shape == (b, h, d)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(FA.decode_attention(*args), got)    # deterministic

@@ -79,7 +79,10 @@ def test_capability_snapshots_byte_equal(seed):
 
 
 @pytest.mark.parametrize("module", ["repro_torch",
-                                    "repro_torch.fl.simulation"])
+                                    "repro_torch.fl.simulation",
+                                    "repro_torch.models.model",
+                                    "repro_torch.configs",
+                                    "repro_torch.kernels.flash_attention"])
 def test_port_imports_neither_jax_nor_reference(module):
     code = (f"import sys; import {module}; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "

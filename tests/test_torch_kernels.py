@@ -138,7 +138,8 @@ def test_cpu_tensors_take_the_twin_and_count_no_launch():
     kept, sign, cnt, ssum, smax = HC.hybrid_compress(x, mx * 0.5)
     RC.recover(kept, sign, x, ssum / cnt.float(), smax)
     assert K.launch_counts() == {"magnitude_histogram": 0,
-                                 "hybrid_compress": 0, "recover": 0}
+                                 "hybrid_compress": 0, "recover": 0,
+                                 "decode_attention": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
