@@ -14,13 +14,17 @@ Phases, each of which fails the script on any error:
    the card at the round's shapes (n = 164,134; 1 row and a chunk of rows),
    with CUDA-event timings of kernel, plain version and, for the
    histogram, torch.histc as a yardstick, beside the bytes bound at
-   3.35 TB/s;
+   3.35 TB/s; and each kernel's own device time (``kernel_only_ms``, from
+   a torch.profiler window of CUDA activity), which also shows how many
+   CUDA kernels one call launches;
 4. decode kernel: flash decode against its plain version at the serve
    shape (B=4, H=Hkv=20, D=128, S=48, bf16, every length 1..48), the
    serve example's direct call (B=2, H=8, Hkv=4, D=64, S=2048, f32) and a
-   long cache at full width (S=4096, bf16), timed beside the bytes bound
-   and torch's scaled_dot_product_attention with a length mask (a
-   yardstick only; the port never calls it);
+   long cache at full width (S=4096, bf16), timed as in phase 3 beside the
+   bytes bound and torch's scaled_dot_product_attention with a length mask
+   (a yardstick only; the port never calls it); one CUDA kernel per call.
+   After phases 3 and 4 and the paths, the scratch the histogram and
+   decode kernels leave zeroed between calls must be all zeros;
 5. parity: the small HAR config (12 clients) on cuda and on cpu within
    the port from one initial vector — participants, plans and sim_time
    identical, the global vector within a stated tolerance; and pipelined
@@ -36,7 +40,10 @@ Phases, each of which fails the script on any error:
    kernel-path vs plain-path logits over a teacher-forced sequence and
    decode vs prefill logits within stated tolerances; a warm rerun for
    latency, and 10 teacher-forced decode steps timed and then profiled
-   for the device's busy share.
+   for the device's busy share; then a long-cache window: a 4096-position
+   cache filled from a seeded generator, 10 teacher-forced steps from
+   length 4000, timed and profiled for the decode kernel's share, with the
+   kernel path's last-step logits against the plain path's.
 
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. It exits non-zero without a CUDA device
@@ -52,6 +59,10 @@ import subprocess
 import sys
 import time
 
+# keep CUPTI set up between profiler sessions: torch's default tears it
+# down after each one, and a session that sets it up again now and then
+# records no CUDA kernel (seen on the H100)
+os.environ.setdefault("TEARDOWN_CUPTI", "0")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
@@ -78,6 +89,13 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 16, 32
 SERVE_REL_L2 = 5e-2
 SERVE_ARGMAX_AGREE = 0.9
 PROFILE_STEPS = 10               # decode steps in the serve profile window
+# long-cache serve window: teacher-forced steps from LONG_START positions
+# into a cache of LONG_CACHE, filled from a seeded generator
+LONG_CACHE, LONG_START, LONG_STEPS = 4096, 4000, 10
+KERNEL_ONLY_CALLS = 10           # calls in each kernel_only_ms window
+PROFILE_ATTEMPTS = 5             # runs of a profiled window that records nothing
+PROFILE_PAD_S = 0.05             # host time around a profiled window's launches
+PROFILE_KEEP = 0.95              # share of a serve window's events kept
 
 
 def check(cond: bool, msg: str) -> None:
@@ -142,6 +160,96 @@ def _bound(bytes_moved: float, f32_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _profile_once(torch, run, pad_s: float):
+    """torch.profiler over ``run()``, CUDA activity only (CPU operator
+    events would only slow the trace), with ``pad_s`` seconds of host time
+    before the first launch and after the last kernel ends: without them
+    the tracer now and then delivers none of a short window's kernels
+    (seen on the H100 after the timer's windows, with the tracer slow to
+    start). Returns the averages and the per-name CUDA events (kernels,
+    memsets, copies) among them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        run()
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+    averages = prof.key_averages()
+    return averages, [ev for ev in averages
+                      if ev.device_type == DeviceType.CUDA
+                      and not getattr(ev, "is_user_annotation", False)]
+
+
+def _cuda_events(torch, run, table_name: str | None = None):
+    """The CUDA events of ``run()`` (see `_profile_once`). A window that
+    records nothing is run again with longer pads, up to PROFILE_ATTEMPTS
+    times, and then the script fails. The table goes to
+    OUT_DIR/<table_name> if given."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        averages, events = _profile_once(torch, run, PROFILE_PAD_S * attempt)
+        if events:
+            break
+        print(f"note: the profiler recorded no CUDA kernel (attempt "
+              f"{attempt} of {PROFILE_ATTEMPTS})", file=sys.stderr)
+    check(bool(events), "the profiler recorded no CUDA kernel in "
+          f"{PROFILE_ATTEMPTS} runs of one window")
+    if table_name:
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, table_name), "w") as f:
+            f.write(averages.table(sort_by="self_device_time_total",
+                                   row_limit=40))
+    return events
+
+
+def _kernel_only(torch, flush, fn, calls: int = KERNEL_ONLY_CALLS) -> dict:
+    """fn's own device time: a torch.profiler window of ``calls`` calls,
+    each after an L2 flush. The flush here is an in-place bitwise_not of
+    the timer's flush buffer (the same 64 MiB written as its zero_); its
+    own kernels, found by profiling it alone, are dropped by name. Returns
+    the ms per call of every other kernel, memset and copy on the card,
+    and per name the launches per call and ms per launch."""
+    flush_op = flush.view(torch.int32).bitwise_not_
+    flush_keys = {ev.key for ev in _cuda_events(torch, flush_op)}
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+
+    def window():
+        for _ in range(calls):
+            flush_op()
+            fn()
+    by_name, total = {}, 0.0
+    for ev in _cuda_events(torch, window):
+        if ev.key in flush_keys:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        total += ms
+        by_name[ev.key] = {"launches_per_call": ev.count / calls,
+                           "ms_per_launch": ms / ev.count}
+    check(bool(by_name), "the profiled window holds only the flush")
+    return {"kernel_only_ms": total / calls, "kernels": by_name}
+
+
+def _one_kernel(name: str, prof: dict) -> None:
+    """A redesigned kernel's call is one CUDA kernel: no fill, memset or
+    second pass beside it."""
+    check(len(prof["kernels"]) == 1
+          and next(iter(prof["kernels"].values()))["launches_per_call"] == 1,
+          f"{name}: one call launched {prof['kernels']}, want one kernel")
+
+
+def _scratch_zeroed(torch, build, after: str) -> None:
+    """Every buffer of `build.zeroed_scratch` is all zeros again: the
+    kernels that merge their blocks in one launch leave it so, and their
+    next call depends on it."""
+    torch.cuda.synchronize()
+    for key, buf in build._ZEROED.items():
+        check(not bool(buf.any()), f"after {after}: the zeroed scratch "
+              f"{key[0]} holds {int(buf.count_nonzero())} non-zero words")
+
+
 def phase_kernels(torch, K, timer):
     """Each kernel vs its plain version at the main path's shapes."""
     from repro_torch.core import compression as C
@@ -163,17 +271,29 @@ def phase_kernels(torch, K, timer):
         check(torch.equal(hk, hp), f"histogram rows={rows}: counts differ")
         check(int(hk.sum()) == rows * n, "histogram lost elements")
         ms = timer.ms(lambda: TT.magnitude_histogram(x, mx))
+        own = _kernel_only(torch, timer.flush,
+                           lambda: TT.magnitude_histogram(x, mx))
+        _one_kernel("magnitude_histogram", own)
         plain = timer.ms(lambda: TT.magnitude_histogram_plain(x, mx))
-        lib = None
+        lib = lib_own = None
         if rows == 1:
             m = float(mx[0])
-            lib = timer.ms(lambda: torch.histc(x[0].abs(), bins=256, min=0.0,
-                                               max=m))
+
+            def histc():
+                return torch.histc(x[0].abs(), bins=256, min=0.0, max=m)
+            lib = timer.ms(histc)
+            lib_own = _kernel_only(torch, timer.flush, histc)
         bms, by = _bound(rows * n * 4 + rows * 4 + rows * 256 * 4,
                          2.0 * rows * n)
         results[("magnitude_histogram", rows)] = dict(
-            max_abs_err=float((hk - hp).abs().max()), ms=ms, plain_ms=plain,
-            library_ms=lib, bound_ms=bms, bound_by=by)
+            max_abs_err=float((hk - hp).abs().max()), ms=ms,
+            kernel_only_ms=own["kernel_only_ms"], plain_ms=plain,
+            library_ms=lib, library_kernel_only_ms=(
+                lib_own["kernel_only_ms"] if lib_own else None),
+            bound_ms=bms, bound_by=by,
+            grid=TT.hist_plan(rows, n, _sm_count(torch)),
+            profile=own["kernels"],
+            library_profile=lib_own["kernels"] if lib_own else None)
 
         # compress of the shared global vector at per-row thresholds
         g = x[0].contiguous()
@@ -190,12 +310,16 @@ def phase_kernels(torch, K, timer):
         check(bool((sum_err <= SUM_RTOL * cp[3].abs() + 1e-30).all()),
               f"compress rows={rows}: sum_abs outside rtol {SUM_RTOL}")
         ms = timer.ms(lambda: HC.hybrid_compress(g, thr))
+        own = _kernel_only(torch, timer.flush,
+                           lambda: HC.hybrid_compress(g, thr))
         plain = timer.ms(lambda: HC.hybrid_compress_plain(g, thr))
         bms, by = _bound(n * 4 + rows * 4 + rows * n * 5 + rows * 12,
                          3.0 * rows * n)
         results[("hybrid_compress", rows)] = dict(
-            max_abs_err=float(sum_err.max()), ms=ms, plain_ms=plain,
-            library_ms=None, bound_ms=bms, bound_by=by)
+            max_abs_err=float(sum_err.max()), ms=ms,
+            kernel_only_ms=own["kernel_only_ms"], plain_ms=plain,
+            library_ms=None, bound_ms=bms, bound_by=by,
+            profile=own["kernels"])
 
         # recover against stale local rows, with the compress scalars
         kept, sign, cnt, ssum, smax = ck
@@ -207,16 +331,24 @@ def phase_kernels(torch, K, timer):
         torch.cuda.synchronize()
         check(torch.equal(rk, rp), f"recover rows={rows}: output differs")
         ms = timer.ms(lambda: RC.recover(kept, sign, local, mean, smax))
+        own = _kernel_only(torch, timer.flush,
+                           lambda: RC.recover(kept, sign, local, mean, smax))
         plain = timer.ms(lambda: RC.recover_plain(kept, sign, local, mean,
                                                   smax))
         bms, by = _bound(rows * n * 9 + rows * 8 + rows * n * 4,
                          4.0 * rows * n)
         results[("recover", rows)] = dict(
-            max_abs_err=float((rk - rp).abs().max()), ms=ms, plain_ms=plain,
-            library_ms=None, bound_ms=bms, bound_by=by)
+            max_abs_err=float((rk - rp).abs().max()), ms=ms,
+            kernel_only_ms=own["kernel_only_ms"], plain_ms=plain,
+            library_ms=None, bound_ms=bms, bound_by=by,
+            profile=own["kernels"])
     for (name, rows), r in sorted(results.items()):
         print(f"kernel {name} rows={rows} n={n}: " + json.dumps(r))
     return results
+
+
+def _sm_count(torch) -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def _sdpa(torch, q, k, v, mask):
@@ -277,8 +409,13 @@ def phase_decode(torch, timer):
         want = FA.decode_attention_plain(q, k, v, length)
         lib_err = float((lib_out.float() - want.float()).abs().max())
         ms = timer.ms(lambda: FA.decode_attention(q, k, v, length))
+        own = _kernel_only(torch, timer.flush,
+                           lambda: FA.decode_attention(q, k, v, length))
+        _one_kernel(f"decode_attention {name}", own)
         plain = timer.ms(lambda: FA.decode_attention_plain(q, k, v, length))
         lib = timer.ms(lambda: _sdpa(torch, q, k, v, mask))
+        lib_own = _kernel_only(torch, timer.flush,
+                               lambda: _sdpa(torch, q, k, v, mask))
         es = q.element_size()
         valid = sum(min(x, s) for x in lv)
         bytes_moved = (2 * b * h * d * es + 2 * valid * hkv * d * es
@@ -288,11 +425,13 @@ def phase_decode(torch, timer):
         results[name] = dict(
             shape=f"q[{b},{h},{d}] kv[{b},{s},{hkv},{d}] {dt} "
                   f"lengths {lv if len(lv) <= 4 else 'full'}",
-            max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+            max_abs_err=err, ms=ms, kernel_only_ms=own["kernel_only_ms"],
+            plain_ms=plain, library_ms=lib,
+            library_kernel_only_ms=lib_own["kernel_only_ms"],
             library_max_abs_err=lib_err, bound_ms=bms, bound_by=by,
-            n_split=FA.split_plan(b, h, hkv, s,
-                                  torch.cuda.get_device_properties(0)
-                                  .multi_processor_count)[1])
+            plan=FA.plan(b, h, hkv, d, s, q.element_size(),
+                         _sm_count(torch))._asdict(),
+            profile=own["kernels"], library_profile=lib_own["kernels"])
         print(f"kernel decode_attention {name}: " + json.dumps(results[name]))
     return results
 
@@ -372,24 +511,10 @@ def phase_main(torch, K, SimConfig, Simulator, CaesarConfig):
 
 
 def _profile_kernels(torch, fn, table_name):
-    """CUDA kernel events of one call of ``fn`` under torch.profiler, CUDA
-    activity only (the CPU operator events would only slow the trace),
-    sorted by device time, and their total device seconds. The table goes
-    to chiprun_out/<table_name>."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    kernels = [ev for ev in events if ev.device_type == DeviceType.CUDA
-               and not getattr(ev, "is_user_annotation", False)]
-    check(bool(kernels), "the profiler recorded no CUDA kernel")
-    kernels.sort(key=lambda ev: ev.self_device_time_total, reverse=True)
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, table_name), "w") as f:
-        f.write(events.table(sort_by="self_device_time_total", row_limit=40))
+    """CUDA events of one call of ``fn``, sorted by device time, and their
+    total device seconds; the table goes to OUT_DIR/<table_name>."""
+    kernels = sorted(_cuda_events(torch, fn, table_name),
+                     key=lambda ev: ev.self_device_time_total, reverse=True)
     return kernels, sum(ev.self_device_time_total for ev in kernels) / 1e6
 
 
@@ -512,6 +637,8 @@ def phase_serve(torch, K):
     kernels, dev_s = _profile_kernels(
         torch, lambda: _teacher_forced(torch, M, params, cfg, window),
         "profile_serve.txt")
+    dec = _decode_events(kernels, cfg.n_layers * PROFILE_STEPS)
+    long_res = _long_cache_window(torch, M, FA, params, cfg)
     res = {
         "arch": cfg.name, "n_params": n_params, "init_s": init_s,
         "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
@@ -523,6 +650,8 @@ def phase_serve(torch, K):
         "profile_steps": PROFILE_STEPS, "window_wall_s": window_s,
         "device_s_per_step": dev_s / PROFILE_STEPS,
         "device_busy_share": dev_s / window_s,
+        "decode_kernel_ms_per_launch": dec["ms_per_launch"],
+        "decode_kernel_share": dec["ms"] / (dev_s * 1e3),
         "kernel_vs_plain_rel_l2_max": max(rel),
         "kernel_vs_plain_rel_l2_median": sorted(rel)[len(rel) // 2],
         "kernel_vs_plain_rel_l2_per_step": rel,
@@ -534,6 +663,7 @@ def phase_serve(torch, K):
         "top_kernels": [{"name": ev.key[:90],
                          "ms": ev.self_device_time_total / 1e3,
                          "launches": ev.count} for ev in kernels[:12]],
+        "long_cache": long_res,
     }
     print("serve path: " + json.dumps(res))
     check(max(rel) <= SERVE_REL_L2, f"kernel vs plain logits rel L2 "
@@ -542,7 +672,106 @@ def phase_serve(torch, K):
           f"agree on {agree:.3f} < {SERVE_ARGMAX_AGREE} of steps")
     check(rel_pre <= SERVE_REL_L2, f"decode vs prefill logits rel L2 "
           f"{rel_pre:.3g} > {SERVE_REL_L2}")
+    check(long_res["kernel_vs_plain_rel_l2_last_step"] <= SERVE_REL_L2,
+          f"long cache: kernel vs plain logits rel L2 "
+          f"{long_res['kernel_vs_plain_rel_l2_last_step']:.3g} > "
+          f"{SERVE_REL_L2}")
     return counts, res
+
+
+def _decode_events(kernels, want_launches: int) -> dict:
+    """The decode kernel's profiler events in a serve window of
+    want_launches wrapper calls: one kernel name, no more events than
+    calls, and at least PROFILE_KEEP of them (the profiler's buffers drop
+    a few of a window's ~24k kernel events: 394 of 400 in one H100 run);
+    its ms and ms per launch."""
+    dec = [ev for ev in kernels if "decode_kernel" in ev.key]
+    check(len(dec) == 1 and PROFILE_KEEP * want_launches <= dec[0].count
+          <= want_launches,
+          "serve window: decode kernels "
+          f"{[(e.key[:60], e.count) for e in dec]}, want one kernel "
+          f"launched {want_launches} times")
+    ms = dec[0].self_device_time_total / 1e3
+    return {"ms": ms * want_launches / dec[0].count,
+            "ms_per_launch": ms / dec[0].count,
+            "profiled_launches": dec[0].count}
+
+
+def _long_cache_window(torch, M, FA, params, cfg):
+    """LONG_STEPS teacher-forced decode steps from length LONG_START into a
+    LONG_CACHE-position cache (made with init_cache, filled layer by layer
+    from a seeded generator in the model dtype): wall ms per step (warm,
+    host clock ending in a sync), device time per step and the decode
+    kernel's share and per-launch time (profiled rerun of the same steps),
+    and the kernel path's vs the plain path's logits at the last step (both
+    from the same cache: each rewrites the last position with its own K/V,
+    and every earlier position is the same)."""
+    dev = torch.device("cuda")
+    b = SERVE_BATCH
+    cache = M.init_cache(cfg, b, LONG_CACHE, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for name in ("k", "v"):
+        for layer in cache["layers"][name]:
+            layer.normal_(generator=gen)
+    tokens = torch.randint(0, cfg.vocab, (b, LONG_STEPS), generator=gen,
+                           device=dev, dtype=torch.int32)
+
+    def steps(n):
+        length = torch.full((b,), LONG_START, dtype=torch.int32, device=dev)
+        logits = None
+        for i in range(n):
+            logits, _ = M.decode_step(params, cache,
+                                      {"tokens": tokens[:, i:i + 1]}, length,
+                                      cfg)
+            length = length + 1
+        return logits
+
+    steps(2)                                       # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps(LONG_STEPS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    kernels, dev_s = _profile_kernels(torch, lambda: steps(LONG_STEPS),
+                                      "profile_serve_long.txt")
+    dec = _decode_events(kernels, cfg.n_layers * LONG_STEPS)
+    # last step: kernel path, then plain path, from the same cache
+    steps(LONG_STEPS - 1)
+    length = torch.full((b,), LONG_START + LONG_STEPS - 1, dtype=torch.int32,
+                        device=dev)
+    last = {"tokens": tokens[:, -1:]}
+    via_kernel = M.decode_step(params, cache, last, length, cfg)[0].float()
+    M.decode_attention = FA.decode_attention_plain
+    try:
+        via_plain = M.decode_step(params, cache, last, length, cfg)[0].float()
+    finally:
+        M.decode_attention = FA.decode_attention
+    check(bool(torch.isfinite(via_kernel).all()), "long cache: non-finite "
+          "logits")
+    out = {"cache_positions": LONG_CACHE, "start_length": LONG_START,
+           "steps": LONG_STEPS,
+           "kv_cache_gb": 2 * cache["layers"]["k"].numel()
+           * cache["layers"]["k"].element_size() / 1e9,
+           "ms_per_step": wall_s / LONG_STEPS * 1e3,
+           "device_ms_per_step": dev_s / LONG_STEPS * 1e3,
+           "device_busy_share": dev_s / wall_s,
+           "decode_kernel_ms_per_step": dec["ms"] / LONG_STEPS,
+           "decode_kernel_ms_per_launch": dec["ms_per_launch"],
+           "decode_kernel_share": dec["ms"] / (dev_s * 1e3),
+           "kernel_vs_plain_rel_l2_last_step": _rel_l2(torch, via_kernel,
+                                                       via_plain),
+           "kernel_vs_plain_argmax_agree": float(
+               (via_kernel.argmax(-1) == via_plain.argmax(-1)).float()
+               .mean()),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "top_kernels": [{"name": ev.key[:90],
+                            "ms_per_step":
+                                ev.self_device_time_total / 1e3 / LONG_STEPS,
+                            "launches": ev.count} for ev in kernels[:8]]}
+    print("serve long cache: " + json.dumps(out))
+    del cache
+    torch.cuda.empty_cache()
+    return out
 
 
 def _leaves(tree):
@@ -585,9 +814,14 @@ def main() -> int:
     print(f"build: {build_s:.2f} s for {len(build.SOURCES)} kernels "
           f"(phase {time.perf_counter() - t0:.2f} s)")
     for name in build.SOURCES:
+        entry = ""
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or ("spill" in line and "0 bytes spill"
+                                         not in line):
+                report = line.split(":", 1)[-1].strip()
+                print(f"ptxas {name} {entry}: {report}")
 
     phase_s = {"build": time.perf_counter() - t0}
 
@@ -600,8 +834,10 @@ def main() -> int:
 
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device="cuda")
     kres = timed("kernels", phase_kernels, torch, K, _Timer(torch, flush))
+    _scratch_zeroed(torch, build, "the kernels phase")
     dres = timed("decode_kernel", phase_decode, torch,
                  _Timer(torch, flush, windows=11))
+    _scratch_zeroed(torch, build, "the decode kernel phase")
     del flush
     parity = timed("parity", phase_parity, torch, SimConfig, Simulator,
                    CaesarConfig)
@@ -610,6 +846,7 @@ def main() -> int:
     prof = timed("round_profile", phase_profile, torch, cfg, Simulator,
                  main_out["wall_per_round_s"])
     serve_counts, serve = timed("serve_path", phase_serve, torch, K)
+    _scratch_zeroed(torch, build, "the round and serve paths")
 
     replaces = {
         "magnitude_histogram": "src/repro/kernels/topk_threshold.py:34",
@@ -626,6 +863,7 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{build.SOURCES[name]}",
             "replaces": replaces[name], "launches": counts[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "kernel_only_ms": r["kernel_only_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": f"[{rows}, {N_PARAMS}]"})
@@ -637,6 +875,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:25",
         "launches": serve_counts["decode_attention"],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "kernel_only_ms": r["kernel_only_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "shape": r["shape"]})

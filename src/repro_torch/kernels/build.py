@@ -10,10 +10,13 @@ all at once, and waits for all of them. Nothing is built on import.
 
 The compiler is ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on ``PATH``, else
 ``/usr/local/cuda/bin/nvcc``. The target is ``sm_90a`` (Hopper).
+`zeroed_scratch` keeps the int32 buffers that kernels merging their blocks
+in one launch (ticket counters, accumulators) leave zeroed between calls.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -115,6 +118,32 @@ def stream_of(tensor) -> int:
     device — kernels launch there and never synchronise."""
     import torch
     return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (launch plans
+    size their grids from it)."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_ZEROED: dict = {}
+
+
+def zeroed_scratch(name: str, device, n: int, stream: int = 0):
+    """At least ``n`` int32 of scratch for kernel ``name``'s launches on
+    ``stream`` of ``device``, zeroed once when allocated (or grown). The
+    kernels that use it leave it zeroed, so no call pays a memset; one
+    buffer per stream, so launches on two streams never share one."""
+    import torch
+    key = (name, device, stream)
+    buf = _ZEROED.get(key)
+    if buf is None or buf.numel() < n:
+        size = max(n, 4096, 2 * buf.numel() if buf is not None else 0)
+        buf = torch.zeros(size, dtype=torch.int32, device=device)
+        _ZEROED[key] = buf
+    return buf
 
 
 def check_launch(code: int, name: str) -> None:

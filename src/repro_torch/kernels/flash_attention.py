@@ -10,15 +10,19 @@ tensors take the plain version (`decode_attention_plain`), with no fallback
 between them. Lengths are expected in 1..S: the kernel clamps them to
 [0, S], and a row of length 0 comes out as zeros.
 
-Long caches are split across blocks so that every SM has work; the
-splits' partial softmax states are merged by a second kernel in fixed
-order (same inputs, same bits). The split size depends on the shapes and
-the card's SM count only, never on the data, so no host sync is needed.
+A long cache is split across blocks so that every SM has work, in one
+launch: each split writes its partial softmax state to scratch and the
+last block of each (b, kv-head group) to finish merges them in fixed order
+(same inputs, same bits). A short one runs unsplit, where the merge would
+cost more than it saves. The plan depends on the
+shapes and the card's SM count only, never on the data, so no host sync is
+needed. The merge's ticket counters live in `build.zeroed_scratch`, zeroed
+once when allocated and left zeroed by every launch.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
+from typing import NamedTuple
 
 import torch
 
@@ -28,36 +32,74 @@ decode_attention_plain = ref.decode_attention
 _C = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# one split covers at least this many positions, so short caches run in
-# one pass; splits are chunks of whole warp tiles (4 warps x 8 positions)
-MIN_CHUNK = 256
-_TILE_POS = 32
+# the split plan: aim at BLOCKS_PER_SM blocks per SM, splits of a multiple
+# of MIN_CHUNK positions, at most MAX_SPLIT splits (the merging block reads
+# every split's partial). Three blocks fit on an SM, so 2 keeps the whole
+# grid resident at once with long splits: on the H100 it beat 4, 8 and 16
+# at the long-cache and example shapes (PERF.md). A split must also stream
+# at least MIN_SPLIT_BYTES of K and V: its partial, fence, ticket and the
+# merge cost a few µs, more than a shorter stream saves, so a short cache
+# (the serve loop's 48 positions) runs as one split.
+BLOCKS_PER_SM = 2
+MIN_CHUNK = 16
+MAX_SPLIT = 64
+MIN_SPLIT_BYTES = 128 * 1024
+GROUPS = (1, 2, 4, 8)          # query heads per block the kernel is built for
+MAX_GROUP_REGS = 64            # f32 registers per lane for q and acc each
+
+
+class Plan(NamedTuple):
+    gt: int                    # query heads per block (a GROUPS entry)
+    n_gblk: int                # blocks per kv head's group of query heads
+    chunk: int                 # positions per split
+    n_split: int
+
+    def pairs(self, b: int, hkv: int) -> int:
+        """(b, kv-head group) pairs: one ticket counter each."""
+        return b * hkv * self.n_gblk
+
+    def blocks(self, b: int, hkv: int) -> int:
+        return self.pairs(b, hkv) * self.n_split
 
 
 def _lib():
     fn = build.load("decode_attention").decode_attention
     if fn.argtypes is None:
-        fn.argtypes = [_C, _C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I, _I,
-                       _I, _I, _I, _C]
+        fn.argtypes = [_C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _C]
         fn.restype = ctypes.c_int
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def lane_elements(d: int, itemsize: int) -> int:
+    """Elements of a row each lane holds (the kernel's Plan::EPL): rows are
+    16-byte chunks over a sub-warp of the largest power of two <= chunks
+    (at most 32) lanes."""
+    cpr = d * itemsize // 16
+    lpr = min(32, 1 << (cpr.bit_length() - 1))
+    return -(-cpr // lpr) * (16 // itemsize)
 
 
-def split_plan(b: int, h: int, hkv: int, s: int, sm_count: int
-               ) -> tuple[int, int]:
-    """(chunk, n_split): split S so that the launch has about two blocks
-    per SM, each split at least MIN_CHUNK positions long."""
-    g = h // hkv
-    blocks = b * hkv * -(-g // 4)
-    want = max(1, -(-2 * sm_count // blocks))
-    chunk = max(MIN_CHUNK, -(-s // want))
-    chunk = -(-chunk // _TILE_POS) * _TILE_POS
-    return chunk, -(-s // chunk)
+def group_plan(g: int, d: int, itemsize: int) -> tuple[int, int]:
+    """(gt, n_gblk): the block's query heads, the smallest GROUPS entry that
+    holds the group (capped so q and acc fit in registers), and how many
+    blocks share one kv head's group."""
+    cap = max(x for x in GROUPS
+              if x * lane_elements(d, itemsize) <= MAX_GROUP_REGS)
+    gt = min(x for x in GROUPS if x >= min(g, cap))
+    return gt, -(-g // gt)
+
+
+def plan(b: int, h: int, hkv: int, d: int, s: int, itemsize: int,
+         sm_count: int) -> Plan:
+    """The launch: group blocking, then S split so that the grid has about
+    BLOCKS_PER_SM blocks per SM, in splits of at least MIN_SPLIT_BYTES."""
+    gt, n_gblk = group_plan(h // hkv, d, itemsize)
+    pairs = b * hkv * n_gblk
+    want = min(MAX_SPLIT, max(1, -(-BLOCKS_PER_SM * sm_count // pairs)))
+    chunk = max(-(-MIN_SPLIT_BYTES // (2 * d * itemsize)), -(-s // want))
+    chunk = -(-chunk // MIN_CHUNK) * MIN_CHUNK
+    return Plan(gt, n_gblk, chunk, -(-s // chunk))
 
 
 def _check(q, k, v, length) -> None:
@@ -100,26 +142,27 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d % 32 or not 32 <= d <= 256:
         raise ValueError(f"the kernel takes D in 32..256, a multiple of 32; "
                          f"got {d}")
-    if b > 65535 or hkv * -(-(h // hkv) // 4) > 65535:
-        raise ValueError("at most 65535 sequences and kv-head groups")
+    if b > 65535:
+        raise ValueError("at most 65535 sequences")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned")
     fn = _lib()
-    chunk, n_split = split_plan(b, h, hkv, s, _sm_count(q.device.index
-                                                        or 0))
+    p = plan(b, h, hkv, d, s, q.element_size(),
+             build.sm_count(q.device.index or 0))
     out = torch.empty_like(q)
-    if n_split > 1:
-        f32 = dict(dtype=torch.float32, device=q.device)
-        part_m = torch.empty((b, h, n_split), **f32)
-        part_l = torch.empty((b, h, n_split), **f32)
-        part_acc = torch.empty((b, h, n_split, d), **f32)
-        ptrs = (part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr())
-    else:
-        ptrs = (None, None, None)
+    part = ticket = None
+    stream = build.stream_of(q)
+    if p.n_split > 1:
+        part = torch.empty(p.blocks(b, hkv) * p.gt * (d + 2),
+                           dtype=torch.float32, device=q.device)
+        ticket = build.zeroed_scratch("decode_attention", q.device,
+                                      p.pairs(b, hkv), stream)
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-                  out.data_ptr(), *ptrs, b, h, hkv, s, d, chunk, n_split,
-                  _DTYPES[q.dtype], build.stream_of(q))
+                  out.data_ptr(), part.data_ptr() if part is not None
+                  else None, ticket.data_ptr() if ticket is not None
+                  else None, b, h, hkv, s, d, p.gt, p.n_gblk, p.chunk,
+                  p.n_split, _DTYPES[q.dtype], stream)
     build.check_launch(code, "decode_attention")
     decode_attention.launches += 1
     return out

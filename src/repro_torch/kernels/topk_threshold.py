@@ -7,6 +7,11 @@ are one launch. CUDA tensors launch ``csrc/magnitude_histogram.cu``; CPU
 tensors take the plain version (`magnitude_histogram_plain`). There is no
 fallback from the kernel to the plain version.
 
+One launch per call, with no fill kernel: `hist_plan` spreads each row
+over enough blocks to fill the card, and the blocks of a row merge their
+counts through `build.zeroed_scratch`, zeroed once when allocated and
+left zeroed by every launch.
+
 The threshold lookup in the histogram's cdf is plain PyTorch
 (`ref.threshold_from_cdf`, used through `repro_torch.core.compression`),
 as the reference leaves it to XLA.
@@ -22,15 +27,31 @@ from repro_torch.kernels import build, ref
 N_BINS = ref.N_BINS
 magnitude_histogram_plain = ref.magnitude_histogram
 _C = ctypes.c_void_p
+# grid plan: about BLOCKS_PER_SM blocks per SM over all rows, each block at
+# least MIN_PER_BLOCK elements (a multiple of 4: whole float4 loads)
+BLOCKS_PER_SM = 2
+MIN_PER_BLOCK = 1024
 
 
 def _lib():
     lib = build.load("magnitude_histogram")
     fn = lib.magnitude_histogram
     if fn.argtypes is None:
-        fn.argtypes = [_C, _C, _C, ctypes.c_int, ctypes.c_longlong, _C]
+        fn.argtypes = [_C, _C, _C, _C, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_longlong, ctypes.c_int, _C]
         fn.restype = ctypes.c_int
     return fn
+
+
+def hist_plan(rows: int, n: int, sm_count: int) -> tuple[int, int]:
+    """(per_block, blocks_per_row): each row cut in slices of per_block
+    elements (a multiple of 4), so that the grid has about BLOCKS_PER_SM
+    blocks per SM."""
+    want = max(1, min(-(-n // MIN_PER_BLOCK),
+                      -(-BLOCKS_PER_SM * sm_count // rows)))
+    per_block = -(-n // want)
+    per_block = -(-per_block // 4) * 4
+    return per_block, -(-n // per_block)
 
 
 def _check(x: torch.Tensor, max_abs: torch.Tensor) -> None:
@@ -60,11 +81,18 @@ def magnitude_histogram(x: torch.Tensor, max_abs: torch.Tensor
     if x.shape[0] > 65535:
         raise ValueError("at most 65535 rows per launch")
     fn = _lib()
-    hist = torch.zeros((x.shape[0], N_BINS), dtype=torch.int32,
-                       device=x.device)
+    rows, n = x.shape
+    per_block, blocks = hist_plan(rows, n,
+                                  build.sm_count(x.device.index or 0))
+    hist = torch.empty((rows, N_BINS), dtype=torch.int32, device=x.device)
+    stream = build.stream_of(x)
+    # per row: 256 accumulators and a ticket (see the kernel's note)
+    scratch = (build.zeroed_scratch("magnitude_histogram", x.device,
+                                    rows * (N_BINS + 1), stream).data_ptr()
+               if blocks > 1 else None)
     with torch.cuda.device(x.device):
-        code = fn(x.data_ptr(), max_abs.data_ptr(), hist.data_ptr(),
-                  x.shape[0], x.shape[1], build.stream_of(x))
+        code = fn(x.data_ptr(), max_abs.data_ptr(), hist.data_ptr(), scratch,
+                  rows, n, per_block, blocks, stream)
     build.check_launch(code, "magnitude_histogram")
     magnitude_histogram.launches += 1
     return hist

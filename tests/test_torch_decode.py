@@ -24,6 +24,7 @@ from repro.kernels import ops as R_OPS  # noqa: E402
 from repro.kernels import ref as R_REF  # noqa: E402
 from repro.models import layers as R_L  # noqa: E402
 from repro_torch import kernels as K  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ref as T_REF  # noqa: E402
 from repro_torch.models import layers as T_L  # noqa: E402
@@ -173,11 +174,41 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                                        (2, 8, 4, 2048), (1, 4, 1, 100_000),
                                        (64, 32, 8, 1)])
 def test_split_plan_covers_the_cache(b, h, hkv, s):
-    chunk, n_split = FA.split_plan(b, h, hkv, s, 132)
-    assert chunk % 32 == 0 and chunk >= FA.MIN_CHUNK
-    assert chunk * n_split >= s > chunk * (n_split - 1)
-    if s <= FA.MIN_CHUNK:
-        assert n_split == 1
+    """Every position < S lies in exactly one split (the kernel's split i
+    reads [i*chunk, min((i+1)*chunk, S))), every query head in exactly one
+    block group, and the ticket buffer holds a counter for every (b,
+    kv-head group) pair of the grid. S is split only into splits of at
+    least MIN_SPLIT_BYTES, and then until the grid fills 132 SMs: the long
+    cache does, the serve loop's 48 positions run unsplit."""
+    for d, itemsize in ((128, 2), (64, 4), (96, 2), (256, 4)):
+        p = FA.plan(b, h, hkv, d, s, itemsize, 132)
+        assert p.gt in FA.GROUPS
+        assert p.chunk % FA.MIN_CHUNK == 0 and p.n_split <= FA.MAX_SPLIT
+        row = 2 * d * itemsize                  # K and V of one position
+        assert p.n_split == 1 or p.chunk * row >= FA.MIN_SPLIT_BYTES
+        if p.blocks(b, hkv) < 132:              # no shorter split allowed
+            assert (p.n_split in (1, FA.MAX_SPLIT)
+                    or (p.chunk - FA.MIN_CHUNK) * row < FA.MIN_SPLIT_BYTES)
+        hits = np.zeros(s, np.int64)
+        for i in range(p.n_split):
+            hits[i * p.chunk:min((i + 1) * p.chunk, s)] += 1
+        np.testing.assert_array_equal(hits, 1)
+        assert p.chunk * (p.n_split - 1) < s         # no split is empty
+        g = h // hkv
+        heads = np.zeros(g, np.int64)
+        for gblk in range(p.n_gblk):
+            heads[gblk * p.gt:min((gblk + 1) * p.gt, g)] += 1
+        np.testing.assert_array_equal(heads, 1)
+        assert p.gt * FA.lane_elements(d, itemsize) <= FA.MAX_GROUP_REGS
+        assert p.blocks(b, hkv) == b * hkv * p.n_gblk * p.n_split
+        tickets = build.zeroed_scratch("decode_attention",
+                                       torch.device("cpu"), p.pairs(b, hkv))
+        assert tickets.numel() >= p.pairs(b, hkv)
+        assert tickets.dtype == torch.int32 and not tickets.any()
+        if (b, h, hkv, d, s, itemsize) == (4, 20, 20, 128, 48, 2):
+            assert p.n_split == 1               # the serve loop's cache
+        if (b, h, hkv, d, s, itemsize) == (4, 20, 20, 128, 4096, 2):
+            assert p.n_split > 1 and p.blocks(b, hkv) >= 132
 
 
 # --- on the card: the kernel against its twin --------------------------------
@@ -193,18 +224,33 @@ def cuda():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,h,hkv,d,s", [
     (4, 20, 20, 128, 48), (2, 8, 4, 64, 2048), (4, 20, 20, 128, 4096),
-    (3, 12, 4, 96, 777), (5, 10, 2, 32, 300), (2, 16, 2, 256, 1500)])
+    (3, 12, 4, 96, 777), (5, 10, 2, 32, 300), (2, 16, 2, 256, 1500),
+    # group sizes G = 1, 2, 3, 4, 8 over a cache of 37 positions (no
+    # multiple of any tile or split), every length 1..S
+    (4, 2, 2, 128, 37), (4, 4, 2, 64, 37), (4, 6, 2, 128, 37),
+    (4, 8, 2, 32, 37), (4, 16, 2, 128, 37),
+    # split in 2 (bf16) or 3 (f32) with a short last split, every length
+    # 1..S: some splits empty, some partial
+    (2, 4, 2, 256, 150)])
 def test_cuda_kernel_matches_twin(cuda, dtype, b, h, hkv, d, s):
     q, k, v, length = _inputs(b, h, hkv, d, s, seed=s + d)
     tdt = getattr(torch, dtype)
     args = [torch.from_numpy(x).to(cuda, tdt) for x in (q, k, v)]
-    args.append(torch.from_numpy(length).to(cuda))
-    before = K.launch_counts()["decode_attention"]
-    got = FA.decode_attention(*args)
-    want = FA.decode_attention_plain(*args)
-    torch.cuda.synchronize()
-    assert K.launch_counts()["decode_attention"] == before + 1
-    assert got.dtype == tdt and got.shape == (b, h, d)
+    sweeps = [length]
+    if s < 200:
+        sweeps = [np.minimum(np.arange(i, i + b), s).astype(np.int32)
+                  for i in range(1, s + 1, b)]
     tol = F32_TOL if dtype == "float32" else BF16_TOL
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    assert torch.equal(FA.decode_attention(*args), got)    # deterministic
+    for lv in sweeps:
+        ln = torch.from_numpy(lv).to(cuda)
+        before = K.launch_counts()["decode_attention"]
+        got = FA.decode_attention(*args, ln)
+        want = FA.decode_attention_plain(*args, ln)
+        torch.cuda.synchronize()
+        assert K.launch_counts()["decode_attention"] == before + 1
+        assert got.dtype == tdt and got.shape == (b, h, d)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        assert torch.equal(FA.decode_attention(*args, ln), got)  # same bits
+    torch.cuda.synchronize()            # the merge's tickets are zero again
+    assert not any(bool(buf.any()) for buf in build._ZEROED.values())

@@ -19,6 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as R_OPS  # noqa: E402
 from repro.kernels import ref as R_REF  # noqa: E402
 from repro_torch import kernels as K  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import hybrid_compress as HC  # noqa: E402
 from repro_torch.kernels import recover as RC  # noqa: E402
 from repro_torch.kernels import ref as T_REF  # noqa: E402
@@ -162,6 +163,46 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         RC.recover(kept, sign, x[:1], ssum, smax)
 
 
+def _kernel_slices(row_offset, start, stop):
+    """The histogram kernel's cut of a slice [start, stop) of a row that
+    begins row_offset floats after a 16-byte boundary: a scalar head up to
+    the next boundary, a float4 body, a scalar tail."""
+    head = min((-(row_offset + start)) % 4, stop - start)
+    body_end = start + head + 4 * ((stop - start - head) // 4)
+    return range(start, start + head), range(start + head, body_end), \
+        range(body_end, stop)
+
+
+@pytest.mark.parametrize("rows", [1, 25])
+@pytest.mark.parametrize("n", [164134, 164133, 164135, 4097, 1023, 5])
+def test_histogram_grid_plan_covers_every_element_once(rows, n):
+    """``hist_plan``'s slices, cut as the kernel cuts them, read every
+    element of every row exactly once, with aligned float4 bodies, whether
+    the tensor starts on a 16-byte boundary or one float after it (odd n
+    leaves every other row misaligned); the global model's row fills the
+    card; the scratch buffer holds a zeroed accumulator row and ticket per
+    row."""
+    per_block, blocks = TT.hist_plan(rows, n, 132)
+    assert per_block % 4 == 0
+    assert (blocks - 1) * per_block < n <= blocks * per_block
+    for base in (0, 1):
+        for r in range(rows):
+            hits = np.zeros(n, np.int64)
+            for i in range(blocks):
+                head, body, tail = _kernel_slices(
+                    base + r * n, i * per_block, min((i + 1) * per_block, n))
+                assert len(head) < 4 and len(tail) < 4 and len(body) % 4 == 0
+                assert len(body) == 0 or (base + r * n + body.start) % 4 == 0
+                for part in (head, body, tail):
+                    hits[part.start:part.stop] += 1
+            np.testing.assert_array_equal(hits, 1)
+    if n > 100_000:
+        assert rows * blocks >= 132
+    scratch = build.zeroed_scratch("magnitude_histogram",
+                                   torch.device("cpu"), rows * (TT.N_BINS + 1))
+    assert scratch.numel() >= rows * (TT.N_BINS + 1) and not scratch.any()
+
+
 # --- on the card: each kernel against its twin ------------------------------
 
 @pytest.fixture
@@ -172,7 +213,8 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,n", SHAPES + [(25, 164134)])
+@pytest.mark.parametrize("rows,n", SHAPES + [
+    (25, 164134), (1, 164133), (2, 4099), (25, 164135)])  # n = 2, 1, 3 mod 4
 def test_cuda_kernels_match_twins(cuda, rows, n):
     x = torch.from_numpy(_x(rows, n, 8)).to(cuda)
     mx = torch.amax(x.abs(), dim=-1)
@@ -192,6 +234,8 @@ def test_cuda_kernels_match_twins(cuda, rows, n):
     assert torch.equal(RC.recover(kept, sign, local, mean, smax),
                        RC.recover_plain(kept, sign, local, mean, smax))
     after = K.launch_counts()
+    torch.cuda.synchronize()    # the histogram's accumulators are zero again
+    assert not any(bool(buf.any()) for buf in build._ZEROED.values())
     assert after["magnitude_histogram"] == before["magnitude_histogram"] + 1
     assert after["hybrid_compress"] == before["hybrid_compress"] + 2
     assert after["recover"] == before["recover"] + 1
