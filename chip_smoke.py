@@ -11,28 +11,34 @@ Phases, each of which fails the script on any error:
 2. build: compiles the four CUDA kernels from src/repro_torch/kernels/csrc,
    one nvcc per source, all at once;
 3. kernels: each compression kernel against its plain PyTorch version on
-   the card at the round's shapes (n = 164,134; 1 row and a chunk of rows),
+   the card at the round's shapes (n = 164,134; the histogram at 1 row and
+   a chunk of rows, compress and recover at every chunk rung 1, 2, 4, 8,
+   16 and 25, compress on the shared global vector and on x per row, at
+   the round's thresholds and at edge ones: 0, +inf, one equal to an |x|),
    with CUDA-event timings of kernel, plain version and, for the
    histogram, torch.histc as a yardstick, beside the bytes bound at
    3.35 TB/s; and each kernel's own device time (``kernel_only_ms``, from
-   a torch.profiler window of CUDA activity), which also shows how many
-   CUDA kernels one call launches;
+   a torch.profiler window of CUDA activity), which also shows that one
+   call launches one CUDA kernel (checked for every kernel);
 4. decode kernel: flash decode against its plain version at the serve
    shape (B=4, H=Hkv=20, D=128, S=48, bf16, every length 1..48), the
    serve example's direct call (B=2, H=8, Hkv=4, D=64, S=2048, f32) and a
    long cache at full width (S=4096, bf16), timed as in phase 3 beside the
    bytes bound and torch's scaled_dot_product_attention with a length mask
    (a yardstick only; the port never calls it); one CUDA kernel per call.
-   After phases 3 and 4 and the paths, the scratch the histogram and
-   decode kernels leave zeroed between calls must be all zeros;
+   After phases 3 and 4 and the paths, the scratch the histogram,
+   compress and decode kernels leave zeroed between calls must be all
+   zeros;
 5. parity: the small HAR config (12 clients) on cuda and on cpu within
    the port from one initial vector — participants, plans and sim_time
-   identical, the global vector within a stated tolerance; and pipelined
-   vs synchronous on cuda bit-identical (deterministic kernels and cuDNN);
+   identical, the global vector within a stated tolerance; and two
+   same-seed runs on cuda, and pipelined vs synchronous, bit-identical
+   (deterministic kernels and cuDNN);
 6. round path: the dense HAR point (1000 clients, participation 0.5,
    τ = 5, b_max = 32, 4 rounds) with the launch counters zeroed just
    before and read just after — each must equal what the tier layout
-   implies; then a profiled 1-round rerun for the time breakdown;
+   implies, and compress's and recover's launches are printed per chunk
+   rung; then a profiled 1-round rerun for the time breakdown;
 7. serve path: Qwen1.5-4B at full width (40 layers, d_model 2560, bf16,
    random weights from a seeded generator on the card), 4 prompts × 16
    tokens then 32 greedy tokens, with the counters zeroed just before and
@@ -69,6 +75,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 N_PARAMS = 164134                # cnn_har
 CHUNK = 25                       # auto_chunk at the dense HAR point
+RUNGS = (1, 2, 4, 8, 16, CHUNK)  # tier-chunk sizes the dense HAR point runs
 SUM_RTOL = 1e-5                  # kernel vs plain Σ|x|: summation order
 PARITY_REL_L2 = 1e-4             # cuda vs cpu global vector after 3 rounds
 # decode kernel vs its plain version (the reference's own tolerances):
@@ -203,15 +210,22 @@ def _cuda_events(torch, run, table_name: str | None = None):
     return events
 
 
+_FLUSH_KEYS: dict = {}
+
+
 def _kernel_only(torch, flush, fn, calls: int = KERNEL_ONLY_CALLS) -> dict:
     """fn's own device time: a torch.profiler window of ``calls`` calls,
     each after an L2 flush. The flush here is an in-place bitwise_not of
     the timer's flush buffer (the same 64 MiB written as its zero_); its
-    own kernels, found by profiling it alone, are dropped by name. Returns
-    the ms per call of every other kernel, memset and copy on the card,
-    and per name the launches per call and ms per launch."""
+    own kernels, found by profiling it alone once per buffer, are dropped
+    by name. Returns the ms per call of every other kernel, memset and
+    copy on the card, and per name the launches per call and ms per
+    launch."""
     flush_op = flush.view(torch.int32).bitwise_not_
-    flush_keys = {ev.key for ev in _cuda_events(torch, flush_op)}
+    key = (flush.data_ptr(), flush.numel())
+    if key not in _FLUSH_KEYS:
+        _FLUSH_KEYS[key] = {ev.key for ev in _cuda_events(torch, flush_op)}
+    flush_keys = _FLUSH_KEYS[key]
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -251,7 +265,9 @@ def _scratch_zeroed(torch, build, after: str) -> None:
 
 
 def phase_kernels(torch, K, timer):
-    """Each kernel vs its plain version at the main path's shapes."""
+    """Each compression kernel vs its plain version at the main path's
+    shapes: the histogram at 1 row and a full chunk, compress and recover
+    at every chunk rung of the dense HAR point (RUNGS)."""
     from repro_torch.core import compression as C
     from repro_torch.kernels import hybrid_compress as HC
     from repro_torch.kernels import recover as RC
@@ -261,86 +277,117 @@ def phase_kernels(torch, K, timer):
     dev = torch.device("cuda")
     n = N_PARAMS
     results = {}
-    for rows in (1, CHUNK):
+    for rows in RUNGS:
         x = (torch.randn(rows, n, generator=gen) * 0.05).to(dev)
         mx = torch.amax(x.abs(), dim=-1)
-        # histogram (global model at rows=1, upload deltas at rows=CHUNK)
-        hk = TT.magnitude_histogram(x, mx)
-        hp = TT.magnitude_histogram_plain(x, mx)
-        torch.cuda.synchronize()
-        check(torch.equal(hk, hp), f"histogram rows={rows}: counts differ")
-        check(int(hk.sum()) == rows * n, "histogram lost elements")
-        ms = timer.ms(lambda: TT.magnitude_histogram(x, mx))
-        own = _kernel_only(torch, timer.flush,
-                           lambda: TT.magnitude_histogram(x, mx))
-        _one_kernel("magnitude_histogram", own)
-        plain = timer.ms(lambda: TT.magnitude_histogram_plain(x, mx))
-        lib = lib_own = None
-        if rows == 1:
-            m = float(mx[0])
+        if rows in (1, CHUNK):
+            # histogram (global model at rows=1, upload deltas at CHUNK)
+            hk = TT.magnitude_histogram(x, mx)
+            hp = TT.magnitude_histogram_plain(x, mx)
+            torch.cuda.synchronize()
+            check(torch.equal(hk, hp), f"histogram rows={rows}: counts differ")
+            check(int(hk.sum()) == rows * n, "histogram lost elements")
+            ms = timer.ms(lambda: TT.magnitude_histogram(x, mx))
+            own = _kernel_only(torch, timer.flush,
+                               lambda: TT.magnitude_histogram(x, mx))
+            _one_kernel("magnitude_histogram", own)
+            plain = timer.ms(lambda: TT.magnitude_histogram_plain(x, mx))
+            lib = lib_own = None
+            if rows == 1:
+                m = float(mx[0])
 
-            def histc():
-                return torch.histc(x[0].abs(), bins=256, min=0.0, max=m)
-            lib = timer.ms(histc)
-            lib_own = _kernel_only(torch, timer.flush, histc)
-        bms, by = _bound(rows * n * 4 + rows * 4 + rows * 256 * 4,
-                         2.0 * rows * n)
-        results[("magnitude_histogram", rows)] = dict(
-            max_abs_err=float((hk - hp).abs().max()), ms=ms,
-            kernel_only_ms=own["kernel_only_ms"], plain_ms=plain,
-            library_ms=lib, library_kernel_only_ms=(
-                lib_own["kernel_only_ms"] if lib_own else None),
-            bound_ms=bms, bound_by=by,
-            grid=TT.hist_plan(rows, n, _sm_count(torch)),
-            profile=own["kernels"],
-            library_profile=lib_own["kernels"] if lib_own else None)
+                def histc():
+                    return torch.histc(x[0].abs(), bins=256, min=0.0, max=m)
+                lib = timer.ms(histc)
+                lib_own = _kernel_only(torch, timer.flush, histc)
+            bms, by = _bound(rows * n * 4 + rows * 4 + rows * 256 * 4,
+                             2.0 * rows * n)
+            results[("magnitude_histogram", rows)] = dict(
+                max_abs_err=float((hk - hp).abs().max()), ms=ms,
+                kernel_only_ms=own["kernel_only_ms"], plain_ms=plain,
+                library_ms=lib, library_kernel_only_ms=(
+                    lib_own["kernel_only_ms"] if lib_own else None),
+                bound_ms=bms, bound_by=by,
+                grid=TT.hist_plan(rows, n, _sm_count(torch)),
+                profile=own["kernels"],
+                library_profile=lib_own["kernels"] if lib_own else None)
 
-        # compress of the shared global vector at per-row thresholds
+        # compress of the shared global vector at per-row thresholds from
+        # download ratios θ_d across their range [0, θ_d max = 0.6] (one
+        # row: 0.3, a mid-range ratio), as the main path computes them; it
+        # is timed. Checked also on x per row and at edge thresholds: the
+        # first row compresses nothing (thr 0), the last everything (thr
+        # +inf) and another sits exactly on an |x|
         g = x[0].contiguous()
         gcdf, gmx = C.fused_histogram_cdf(g)
-        thr = C.threshold_from_cdf(gcdf, gmx,
-                                   torch.linspace(0.0, 0.6, rows, device=dev))
-        ck = HC.hybrid_compress(g, thr)
-        cp = HC.hybrid_compress_plain(g, thr)
-        torch.cuda.synchronize()
-        for i, name in ((0, "kept"), (1, "sign"), (2, "count"), (4, "max")):
-            check(torch.equal(ck[i], cp[i]), f"compress rows={rows}: {name} "
+        ratio = (torch.linspace(0.0, 0.6, rows, device=dev) if rows > 1
+                 else torch.full((1,), 0.3, device=dev))
+        thr = C.threshold_from_cdf(gcdf, gmx, ratio)
+        edge = thr.clone()
+        edge[0] = 0.0
+        if rows > 1:
+            edge[-1] = float("inf")
+        if rows > 2:
+            edge[1] = g.abs()[n // 2]
+        local = (g + torch.randn(rows, n, generator=gen).to(dev) * 0.01
+                 ).contiguous()
+        sum_err = rec_err = 0.0
+        for src, t in ((x, edge), (g, edge), (x, thr), (g, thr)):
+            ck = HC.hybrid_compress(src, t)
+            cp = HC.hybrid_compress_plain(src, t)
+            torch.cuda.synchronize()
+            what = (f"compress rows={rows} x "
+                    f"{'shared' if src is g else 'per row'}"
+                    f"{' edge thresholds' if t is edge else ''}")
+            for i, name in ((0, "kept"), (1, "sign"), (2, "count"),
+                            (4, "max")):
+                check(torch.equal(ck[i], cp[i]), f"{what}: {name} differs "
+                      "from the plain version")
+            if t is thr:
+                check(bool((ck[2][ratio > 0] > 0).all()), f"{what}: a row "
+                      "with a download ratio above 0 compressed nothing")
+            err = (ck[3] - cp[3]).abs()
+            check(bool((err <= SUM_RTOL * cp[3].abs() + 1e-30).all()),
+                  f"{what}: sum_abs outside rtol {SUM_RTOL}")
+            sum_err = max(sum_err, float(err.max()))
+            # recover against stale local rows with these scalars
+            kept, sign, cnt, ssum, smax = ck
+            mean = ssum / torch.clamp(cnt, min=1).float()
+            rk = RC.recover(kept, sign, local, mean, smax)
+            rp = RC.recover_plain(kept, sign, local, mean, smax)
+            torch.cuda.synchronize()
+            check(torch.equal(rk, rp), f"recover after {what}: output "
                   "differs from the plain version")
-        sum_err = (ck[3] - cp[3]).abs()
-        check(bool((sum_err <= SUM_RTOL * cp[3].abs() + 1e-30).all()),
-              f"compress rows={rows}: sum_abs outside rtol {SUM_RTOL}")
+            rec_err = max(rec_err, float((rk - rp).abs().max()))
         ms = timer.ms(lambda: HC.hybrid_compress(g, thr))
         own = _kernel_only(torch, timer.flush,
                            lambda: HC.hybrid_compress(g, thr))
+        _one_kernel(f"hybrid_compress rows={rows}", own)
         plain = timer.ms(lambda: HC.hybrid_compress_plain(g, thr))
         bms, by = _bound(n * 4 + rows * 4 + rows * n * 5 + rows * 12,
                          3.0 * rows * n)
         results[("hybrid_compress", rows)] = dict(
-            max_abs_err=float(sum_err.max()), ms=ms,
+            max_abs_err=sum_err, ms=ms,
             kernel_only_ms=own["kernel_only_ms"], plain_ms=plain,
             library_ms=None, bound_ms=bms, bound_by=by,
+            grid=HC.compress_plan(rows, n, _sm_count(torch)),
             profile=own["kernels"])
 
-        # recover against stale local rows, with the compress scalars
-        kept, sign, cnt, ssum, smax = ck
-        mean = ssum / torch.clamp(cnt, min=1).float()
-        local = (g + torch.randn(rows, n, generator=gen).to(dev) * 0.01
-                 ).contiguous()
-        rk = RC.recover(kept, sign, local, mean, smax)
-        rp = RC.recover_plain(kept, sign, local, mean, smax)
-        torch.cuda.synchronize()
-        check(torch.equal(rk, rp), f"recover rows={rows}: output differs")
+        # recover timed on the shared compression's outputs (the loop's
+        # last ones)
         ms = timer.ms(lambda: RC.recover(kept, sign, local, mean, smax))
         own = _kernel_only(torch, timer.flush,
                            lambda: RC.recover(kept, sign, local, mean, smax))
+        _one_kernel(f"recover rows={rows}", own)
         plain = timer.ms(lambda: RC.recover_plain(kept, sign, local, mean,
                                                   smax))
         bms, by = _bound(rows * n * 9 + rows * 8 + rows * n * 4,
                          4.0 * rows * n)
         results[("recover", rows)] = dict(
-            max_abs_err=float((rk - rp).abs().max()), ms=ms,
+            max_abs_err=rec_err, ms=ms,
             kernel_only_ms=own["kernel_only_ms"], plain_ms=plain,
             library_ms=None, bound_ms=bms, bound_by=by,
+            grid=RC.recover_plan(rows, n, _sm_count(torch)),
             profile=own["kernels"])
     for (name, rows), r in sorted(results.items()):
         print(f"kernel {name} rows={rows} n={n}: " + json.dumps(r))
@@ -441,8 +488,8 @@ def phase_parity(torch, SimConfig, Simulator, CaesarConfig):
     from repro_torch.models.paper_models import cnn_har_init
     init = cnn_har_init(torch.Generator().manual_seed(1))
     runs = {}
-    for dev, pipelined in (("cuda", True), ("cuda-sync", False),
-                           ("cpu", True)):
+    for dev, pipelined in (("cuda", True), ("cuda-again", True),
+                           ("cuda-sync", False), ("cpu", True)):
         cfg = SimConfig(dataset="har", n_clients=12, participation=0.25,
                         rounds=3, data_scale=0.2, seed=1, eval_every=1,
                         caesar=CaesarConfig(tau=2, b_max=8),
@@ -452,6 +499,11 @@ def phase_parity(torch, SimConfig, Simulator, CaesarConfig):
         runs[dev] = (sim, hist)
     (sg, hg), (sc, hc) = runs["cuda"], runs["cpu"]
     ss, hs = runs["cuda-sync"]
+    sa, ha = runs["cuda-again"]
+    check(torch.equal(sg.global_flat, sa.global_flat)
+          and hg.traffic_bits == ha.traffic_bits,
+          "two same-seed runs on the card differ (the kernels' fixed-order "
+          "folds should make them bit-identical)")
     check(torch.equal(sg.global_flat, ss.global_flat)
           and hg.traffic_bits == hs.traffic_bits,
           "pipelined and synchronous runs differ on the card")
@@ -485,17 +537,23 @@ def phase_main(torch, K, SimConfig, Simulator, CaesarConfig):
     K.reset_launch_counts()
     hist = sim.run(log=print)
     counts = K.launch_counts()
+    by_rows = K.launch_counts_by_rows()
     tel = sim.executor.telemetry()
     calls, rounds = tel["chunk_calls"], tel["rounds"]
     expect = {"magnitude_histogram": rounds + calls,
               "hybrid_compress": calls, "recover": calls}
     print("main path launches: " + json.dumps(counts) + " expected "
           + json.dumps(expect))
+    print("main path launches by chunk rows: " + json.dumps(by_rows))
     check(rounds == cfg.rounds, f"ran {rounds} rounds, want {cfg.rounds}")
     for name, want in expect.items():
         check(counts[name] > 0, f"{name} never launched on the main path")
         check(counts[name] == want, f"{name}: {counts[name]} launches, "
               f"tier layout implies {want}")
+    for name, per in by_rows.items():
+        check(sum(per.values()) == counts[name] and set(per) <= set(RUNGS),
+              f"{name}: launches by rows {per} do not add up to "
+              f"{counts[name]} over the rungs {RUNGS}")
     check(sim.store.pool.is_cuda and sim.global_flat.is_cuda,
           "pool/global vector not on the card")
     check(bool(torch.isfinite(sim.global_flat).all()), "non-finite global")
@@ -504,10 +562,11 @@ def phase_main(torch, K, SimConfig, Simulator, CaesarConfig):
     out = {"setup_s": setup_s, "wall_per_round_s": hist.wall_per_round,
            "accuracy": hist.accuracy, "traffic_bits": hist.traffic_bits,
            "sim_time": hist.sim_time, "telemetry": tel,
+           "launches_by_rows": by_rows,
            "store": sim.store.telemetry(), "chunk": sim.executor.chunk,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
     print("main path: " + json.dumps(out))
-    return cfg, counts, out
+    return cfg, counts, by_rows, out
 
 
 def _profile_kernels(torch, fn, table_name):
@@ -841,8 +900,9 @@ def main() -> int:
     del flush
     parity = timed("parity", phase_parity, torch, SimConfig, Simulator,
                    CaesarConfig)
-    cfg, counts, main_out = timed("round_path", phase_main, torch, K,
-                                  SimConfig, Simulator, CaesarConfig)
+    cfg, counts, by_rows, main_out = timed(
+        "round_path", phase_main, torch, K, SimConfig, Simulator,
+        CaesarConfig)
     prof = timed("round_profile", phase_profile, torch, cfg, Simulator,
                  main_out["wall_per_round_s"])
     serve_counts, serve = timed("serve_path", phase_serve, torch, K)
@@ -867,6 +927,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": f"[{rows}, {N_PARAMS}]"})
+        if name in by_rows:
+            kernels[-1]["launches_by_rows"] = by_rows[name]
     r = dres["serve"]
     kernels.append({
         "name": "decode_attention", "route": "cuda",

@@ -9,6 +9,9 @@
 Each wrapper dispatches on its input's device (CUDA → kernel, CPU → twin
 in `ref`) and counts its kernel launches in a plain integer attribute
 ``launches``; `launch_counts` / `reset_launch_counts` read and zero them.
+The compress and recover wrappers also count their launches by batch rows
+(``launches_by_rows``, read by `launch_counts_by_rows`): the main path
+calls them once per tier chunk, at chunk sizes 1 to 25.
 Kernels are built from ``csrc/`` at first use (see `build`).
 """
 from __future__ import annotations
@@ -30,6 +33,14 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def launch_counts_by_rows() -> dict:
+    return {name: dict(sorted(fn.launches_by_rows.items()))
+            for name, fn in WRAPPERS.items()
+            if hasattr(fn, "launches_by_rows")}
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_rows"):
+            fn.launches_by_rows = {}

@@ -11,7 +11,8 @@ all at once, and waits for all of them. Nothing is built on import.
 The compiler is ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on ``PATH``, else
 ``/usr/local/cuda/bin/nvcc``. The target is ``sm_90a`` (Hopper).
 `zeroed_scratch` keeps the int32 buffers that kernels merging their blocks
-in one launch (ticket counters, accumulators) leave zeroed between calls.
+in one launch (ticket counters, accumulators) leave zeroed between calls;
+`slice_plan` sizes the row-slice grids of the elementwise kernels.
 """
 from __future__ import annotations
 
@@ -126,6 +127,23 @@ def sm_count(index: int) -> int:
     size their grids from it)."""
     import torch
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def slice_plan(rows: int, n: int, sm_count: int, blocks_per_sm: int,
+               min_per_block: int, max_per_block: int | None = None
+               ) -> tuple[int, int]:
+    """(per_block, blocks_per_row) of a grid that cuts each of ``rows`` rows
+    of n elements in slices of per_block elements (a multiple of 4: whole
+    16-byte vectors), about ``blocks_per_sm`` blocks per SM over all rows,
+    each slice at least ``min_per_block`` elements where n allows and at
+    most ``max_per_block``."""
+    want = max(1, min(-(-n // min_per_block),
+                      -(-blocks_per_sm * sm_count // rows)))
+    if max_per_block is not None:
+        want = max(want, -(-n // max_per_block))
+    per_block = -(-n // want)
+    per_block = -(-per_block // 4) * 4
+    return per_block, -(-n // per_block)
 
 
 _ZEROED: dict = {}

@@ -47,11 +47,7 @@ def hist_plan(rows: int, n: int, sm_count: int) -> tuple[int, int]:
     """(per_block, blocks_per_row): each row cut in slices of per_block
     elements (a multiple of 4), so that the grid has about BLOCKS_PER_SM
     blocks per SM."""
-    want = max(1, min(-(-n // MIN_PER_BLOCK),
-                      -(-BLOCKS_PER_SM * sm_count // rows)))
-    per_block = -(-n // want)
-    per_block = -(-per_block // 4) * 4
-    return per_block, -(-n // per_block)
+    return build.slice_plan(rows, n, sm_count, BLOCKS_PER_SM, MIN_PER_BLOCK)
 
 
 def _check(x: torch.Tensor, max_abs: torch.Tensor) -> None:

@@ -37,8 +37,9 @@ def _x(rows, n, seed):
                                                        spawn_key=(99,)))
     x = (rng.standard_normal((rows, n)) * 3.0).astype(np.float32)
     x[:, ::97] = 0.0
-    x[:, 5] = np.abs(x).max(axis=1)
-    x[:, 6] = -x[:, 5]
+    if n > 6:
+        x[:, 5] = np.abs(x).max(axis=1)
+        x[:, 6] = -x[:, 5]
     return x
 
 
@@ -203,6 +204,122 @@ def test_histogram_grid_plan_covers_every_element_once(rows, n):
     assert scratch.numel() >= rows * (TT.N_BINS + 1) and not scratch.any()
 
 
+PLAN_ROWS = [1, 2, 3, 8, 16, 25]
+PLAN_N = [164134, 164133, 164135, 164136, 4097, 5, 1]   # n = 2, 1, 3, 0 mod 4
+
+
+def _hits(ranges, n):
+    """How often each of n elements is covered by the [a, b) ranges."""
+    diff = np.zeros(n + 1, np.int64)
+    for a, b in ranges:
+        diff[a] += 1
+        diff[b] -= 1
+    return np.cumsum(diff[:-1])
+
+
+@pytest.mark.parametrize("sm", [132, 8])
+@pytest.mark.parametrize("n", PLAN_N)
+@pytest.mark.parametrize("rows", PLAN_ROWS)
+def test_recover_plan_covers_every_element_once(rows, n, sm):
+    """``recover_plan``'s slices, cut as the kernel cuts them (a scalar head
+    up to the first vector boundary of the flat [rows, n] index, whole
+    vectors, a scalar tail), read and write every element of every row
+    exactly once, with every vector on an aligned address of all four
+    streams (aligned bases: 16-byte f32 rows, 4-byte int8 rows); the global
+    model's row fills the card."""
+    per_block, blocks = RC.recover_plan(rows, n, sm)
+    assert per_block % 4 == 0
+    assert (blocks - 1) * per_block < n <= blocks * per_block
+    for r in range(rows):
+        ranges = []
+        for i in range(blocks):
+            head, body, tail = _kernel_slices(
+                r * n, i * per_block, min((i + 1) * per_block, n))
+            assert len(head) < 4 and len(tail) < 4 and len(body) % 4 == 0
+            assert len(body) == 0 or (r * n + body.start) % 4 == 0
+            ranges += [(p.start, p.stop) for p in (head, body, tail)]
+        np.testing.assert_array_equal(_hits(ranges, n), 1)
+    if n > 100_000 and sm == 132:
+        assert rows * blocks >= 132
+
+
+@pytest.mark.parametrize("sm", [132, 8])
+@pytest.mark.parametrize("n", PLAN_N)
+@pytest.mark.parametrize("rows", PLAN_ROWS)
+def test_compress_plan_covers_every_element_once(rows, n, sm):
+    """``compress_plan``'s grid, cut as the kernel cuts it, for a shared x
+    and for x per row: each block stages its x slice once (head, 16-byte
+    body on x's own alignment, tail; x's base 0 or 1 float past a 16-byte
+    boundary) and every row group's x is staged exactly once; each (row,
+    sub-slice) unit stores a scalar head, whole float4 / 4-byte vectors on
+    aligned addresses and a scalar tail, so every output element of every
+    row is written exactly once; the sub-slices tile the block's slice and
+    keep the warps busy; the shared vector's single row fills the card; the
+    ticket scratch is a zeroed row-group counter each."""
+    for shared in (True, False):
+        per_block, cb, group, s = HC.compress_plan(rows, n, sm, shared)
+        assert per_block % 4 == 0 and per_block <= HC.MAX_PER_BLOCK
+        assert (cb - 1) * per_block < n <= cb * per_block
+        assert 1 <= group <= (HC.MAX_GROUP if shared else 1)
+        assert 1 <= s <= HC.NWARP
+        assert group < HC.NWARP or s <= HC.MAX_SPLIT
+        if group < HC.NWARP:
+            assert group * s > HC.NWARP - group     # fewer idle than a row
+        elif group == 25:
+            assert s == 2                           # 50 units on 8 warps
+        groups = -(-rows // group)
+        out = {r: [] for r in range(rows)}
+        for gi in range(groups):
+            r0, nr = gi * group, min(group, rows - gi * group)
+            for base in (0, 1):
+                x_off = base + (0 if shared else r0 * n)
+                staged = []
+                for bx in range(cb):
+                    start, stop = bx * per_block, min((bx + 1) * per_block, n)
+                    head, body, tail = _kernel_slices(x_off, start, stop)
+                    assert len(body) == 0 or (x_off + body.start) % 4 == 0
+                    staged += [(p.start, p.stop) for p in (head, body, tail)]
+                np.testing.assert_array_equal(_hits(staged, n), 1)
+            for bx in range(cb):
+                start, stop = bx * per_block, min((bx + 1) * per_block, n)
+                length = stop - start
+                sw = -(-(-(-length // s)) // 4) * 4
+                for j in range(nr):
+                    for k in range(s):
+                        lo = min(k * sw, length)
+                        hi = min(lo + sw, length)
+                        assert lo % 4 == 0 or lo == length
+                        head, body, tail = _kernel_slices(
+                            (r0 + j) * n, start + lo, start + hi)
+                        assert len(head) < 4 and len(tail) < 4
+                        assert len(body) % 4 == 0
+                        assert (len(body) == 0
+                                or ((r0 + j) * n + body.start) % 4 == 0)
+                        out[r0 + j] += [(p.start, p.stop)
+                                        for p in (head, body, tail)]
+        for r in range(rows):
+            np.testing.assert_array_equal(_hits(out[r], n), 1)
+        if n > 100_000 and sm == 132 and rows == 1:
+            assert cb >= 132
+    scratch = build.zeroed_scratch("hybrid_compress", torch.device("cpu"),
+                                   rows)
+    assert scratch.numel() >= rows and not scratch.any()
+
+
+def test_launch_counts_by_rows_reset_and_skip_cpu_tensors():
+    """Compress and recover count their launches per batch rows; CPU
+    tensors count none, and reset clears the counts."""
+    HC.hybrid_compress.launches_by_rows[25] = 3
+    K.reset_launch_counts()
+    assert K.launch_counts_by_rows() == {"hybrid_compress": {},
+                                         "recover": {}}
+    x = torch.from_numpy(_x(2, 100, 9))
+    kept, sign, cnt, ssum, smax = HC.hybrid_compress(x, x.abs().amax(-1))
+    RC.recover(kept, sign, x, ssum, smax)
+    assert K.launch_counts_by_rows() == {"hybrid_compress": {},
+                                         "recover": {}}
+
+
 # --- on the card: each kernel against its twin ------------------------------
 
 @pytest.fixture
@@ -214,28 +331,51 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,n", SHAPES + [
-    (25, 164134), (1, 164133), (2, 4099), (25, 164135)])  # n = 2, 1, 3 mod 4
+    (25, 164134), (1, 164133), (2, 4099),    # n = 2, 1, 3 mod 4
+    (25, 164135)] + [(r, m) for r in PLAN_ROWS for m in PLAN_N])
 def test_cuda_kernels_match_twins(cuda, rows, n):
-    x = torch.from_numpy(_x(rows, n, 8)).to(cuda)
+    """Each kernel against its twin on the card, compress on a shared x and
+    on x per row, with ±0.0 in x, at thresholds ``mx * linspace(0, 0.9)``
+    and at three edge sets in which every row takes in turn thr 0 (nothing
+    compressed), +inf (everything) and thr equal to one of its |x| (kept:
+    |x| < thr compresses); recover after each compression; the zeroed
+    scratch is zero again after."""
+    xn = _x(rows, n, 8)
+    xn[:, 1::89] = -0.0
+    x = torch.from_numpy(xn).to(cuda)
     mx = torch.amax(x.abs(), dim=-1)
     before = K.launch_counts()
     assert torch.equal(TT.magnitude_histogram(x, mx),
                        TT.magnitude_histogram_plain(x, mx))
     thr = mx * torch.linspace(0.0, 0.9, rows, device=cuda)
+    kind = torch.arange(rows, device=cuda) % 3
+    calls = 0
     for src in (x, x[0].contiguous()):
-        ck = HC.hybrid_compress(src, thr)
-        cp = HC.hybrid_compress_plain(src, thr)
-        for i in (0, 1, 2, 4):
-            assert torch.equal(ck[i], cp[i])
-        torch.testing.assert_close(ck[3], cp[3], rtol=SUM_RTOL, atol=0.0)
-    kept, sign, cnt, ssum, smax = ck
-    mean = ssum / torch.clamp(cnt, min=1).float()
-    local = x * 0.9
-    assert torch.equal(RC.recover(kept, sign, local, mean, smax),
-                       RC.recover_plain(kept, sign, local, mean, smax))
+        on_x = src.abs().expand(rows, n)[:, n // 2]
+        edges = [torch.where(k == 0, 0.0, torch.where(k == 1, float("inf"),
+                                                      on_x))
+                 for k in ((kind + shift) % 3 for shift in range(3))]
+        for t in [thr] + edges:
+            ck = HC.hybrid_compress(src, t)
+            cp = HC.hybrid_compress_plain(src, t)
+            for i in (0, 1, 2, 4):
+                assert torch.equal(ck[i], cp[i])
+            torch.testing.assert_close(ck[3], cp[3], rtol=SUM_RTOL,
+                                       atol=0.0)
+            none, every = t == 0, t == float("inf")
+            assert not ck[2][none].any() and not ck[3][none].any()
+            assert not ck[4][none].any()
+            assert bool((ck[2][every] == n).all())
+            kept, sign, cnt, ssum, smax = ck
+            mean = ssum / torch.clamp(cnt, min=1).float()
+            local = x * 0.9
+            assert torch.equal(RC.recover(kept, sign, local, mean, smax),
+                               RC.recover_plain(kept, sign, local, mean,
+                                                smax))
+            calls += 1
     after = K.launch_counts()
-    torch.cuda.synchronize()    # the histogram's accumulators are zero again
+    torch.cuda.synchronize()    # the scratch counters are zero again
     assert not any(bool(buf.any()) for buf in build._ZEROED.values())
     assert after["magnitude_histogram"] == before["magnitude_histogram"] + 1
-    assert after["hybrid_compress"] == before["hybrid_compress"] + 2
-    assert after["recover"] == before["recover"] + 1
+    assert after["hybrid_compress"] == before["hybrid_compress"] + calls
+    assert after["recover"] == before["recover"] + calls

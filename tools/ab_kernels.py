@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's flash-decode and magnitude-histogram kernels of two or
-more checkouts in turns on one NVIDIA card.
+"""Time the port's four CUDA kernels (flash decode, magnitude histogram,
+hybrid compress, recover) of two or more checkouts in turns on one NVIDIA
+card.
 
     python3 tools/ab_kernels.py --trees . build/parent . build/parent
 
@@ -10,10 +11,16 @@ and builds its kernels into that tree's ``build/kernels``, so two commits
 are compared through their own wrappers on the same card in one run.
 Timings use ``chip_smoke.py``'s timer (flushed L2, card kept busy while
 the host enqueues) and its profiled ``kernel_only_ms``, at the shapes of
-``chip_smoke.py``'s phases 3 and 4, with the library yardsticks beside
-them (scaled_dot_product_attention, torch.histc). Prints, per tree and
-shape, [ms, kernel_only_ms] in µs, and writes all to ``ab_kernels.json``
-in ``chip_smoke.py``'s output directory. Needs a CUDA card and nvcc.
+``chip_smoke.py``'s phases 3 and 4 (compress on the shared global vector
+and recover at 1 row and a full tier chunk), each checked against its
+plain version first, with the library yardsticks beside them
+(scaled_dot_product_attention, torch.histc) and two streaming yardsticks
+at the chunk's [rows, n]: ``fill`` (PyTorch's fills of compress's two
+outputs, the bytes it writes) and ``add`` (``torch.add`` of two f32
+batches into a third, 12 of recover's 13 bytes per element). Prints, per
+tree and shape, [ms, kernel_only_ms] in µs, and writes all to
+``ab_kernels.json`` in ``chip_smoke.py``'s output directory. Needs a CUDA
+card and nvcc.
 """
 from __future__ import annotations
 
@@ -38,9 +45,12 @@ def measure(tree: str) -> dict:
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import hybrid_compress as HC
+    from repro_torch.kernels import recover as RC
     from repro_torch.kernels import topk_threshold as TT
 
-    build.build(["decode_attention", "magnitude_histogram"])
+    build.build(["decode_attention", "magnitude_histogram", "hybrid_compress",
+                 "recover"])
     dev = torch.device("cuda")
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
     timer = CS._Timer(torch, flush, windows=11)
@@ -79,6 +89,39 @@ def measure(tree: str) -> dict:
             out["histc_rows1"] = _times(
                 CS, torch, timer, flush,
                 lambda: torch.histc(x[0].abs(), bins=256, min=0.0, max=m))
+        # compress: the shared global vector at per-row thresholds, the
+        # |x| quantiles of download ratios across [0, 0.6] (one row: 0.3)
+        g = x[0].contiguous()
+        ratio = torch.linspace(0.0, 0.6, rows) if rows > 1 else \
+            torch.tensor([0.3])
+        thr = torch.quantile(g.abs().cpu(), ratio).to(dev)
+        ck = HC.hybrid_compress(g, thr)
+        cp = HC.hybrid_compress_plain(g, thr)
+        CS.check(all(torch.equal(ck[i], cp[i]) for i in (0, 1, 2, 4))
+                 and bool(((ck[3] - cp[3]).abs()
+                           <= CS.SUM_RTOL * cp[3].abs()).all()),
+                 f"{tree} compress rows={rows}: kernel vs plain")
+        CS.check(bool((ck[2][ratio.to(dev) > 0] > 0).all()),
+                 f"{tree} compress rows={rows}: a row compressed nothing")
+        out[f"compress_rows{rows}"] = _times(
+            CS, torch, timer, flush, lambda: HC.hybrid_compress(g, thr))
+        # recover: stale local rows with the compress scalars
+        kept, sign, cnt, ssum, smax = ck
+        mean = ssum / torch.clamp(cnt, min=1).float()
+        local = g + torch.randn(rows, CS.N_PARAMS, generator=gen,
+                                device=dev) * 0.01
+        CS.check(torch.equal(RC.recover(kept, sign, local, mean, smax),
+                             RC.recover_plain(kept, sign, local, mean, smax)),
+                 f"{tree} recover rows={rows}: kernel vs plain")
+        out[f"recover_rows{rows}"] = _times(
+            CS, torch, timer, flush,
+            lambda: RC.recover(kept, sign, local, mean, smax))
+        # streaming yardsticks (PyTorch's own kernels)
+        c = torch.empty_like(local)
+        out[f"fill_rows{rows}"] = _times(
+            CS, torch, timer, flush, lambda: (c.zero_(), sign.zero_()))
+        out[f"add_rows{rows}"] = _times(
+            CS, torch, timer, flush, lambda: torch.add(kept, local, out=c))
     return out
 
 
