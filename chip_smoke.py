@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two paths on one NVIDIA card: the Track-A
-Caesar round, and serving Qwen1.5-4B at full width.
+"""Drive the PyTorch port's paths on one NVIDIA card: the Track-A Caesar
+round on HAR, every scheme of the paper on its CIFAR-10 ResNet-18 at full
+width, and serving Qwen1.5-4B at full width.
 
     python3 chip_smoke.py
 
@@ -20,6 +21,12 @@ Phases, each of which fails the script on any error:
    3.35 TB/s; and each kernel's own device time (``kernel_only_ms``, from
    a torch.profiler window of CUDA activity), which also shows that one
    call launches one CUDA kernel (checked for every kernel);
+3b. kernels at the schemes path's widths: the same checks and timings at
+   n = 11,164,362 (ResNet-18: histogram at 1 and 8 rows, compress on the
+   shared vector at rungs 1, 2, 4, 8, recover at each) and n = 699,066
+   (cnn_cifar: rungs 2 and 8), plus compress on x per row at per-row
+   thresholds (ProWD's upload) at rungs 2 and 8 of the first and 8 of the
+   second, each checked exact, run twice bit-identical and timed;
 4. decode kernel: flash decode against its plain version at the serve
    shape (B=4, H=Hkv=20, D=128, S=48, bf16, every length 1..48), the
    serve example's direct call (B=2, H=8, Hkv=4, D=64, S=2048, f32) and a
@@ -30,15 +37,26 @@ Phases, each of which fails the script on any error:
    compress and decode kernels leave zeroed between calls must be all
    zeros;
 5. parity: the small HAR config (12 clients) on cuda and on cpu within
-   the port from one initial vector — participants, plans and sim_time
-   identical, the global vector within a stated tolerance; and two
-   same-seed runs on cuda, and pipelined vs synchronous, bit-identical
-   (deterministic kernels and cuDNN);
+   the port from one initial vector, for every scheme — participants,
+   plans, sim_time and waiting identical, traffic within rtol 1e-5, the
+   global vector within a stated tolerance outside the elements whose
+   compression selection flipped (counted from the payload bits); and for
+   caesar, prowd and pyramidfl two same-seed runs on cuda, and pipelined
+   vs synchronous, bit-identical (deterministic kernels and cuDNN);
 6. round path: the dense HAR point (1000 clients, participation 0.5,
    τ = 5, b_max = 32, 4 rounds) with the launch counters zeroed just
    before and read just after — each must equal what the tier layout
    implies, and compress's and recover's launches are printed per chunk
    rung; then a profiled 1-round rerun for the time breakdown;
+6b. schemes path: fedavg, fic, cac, flexcom, prowd, pyramidfl and caesar,
+   each for 3 rounds of ResNet-18 at width 64 (11,164,362 parameters) on
+   cifar10 (100 clients, participation 0.1, data_scale 0.2, τ = 10,
+   b_max = 32: chunk 8), the counters zeroed just before each run and read
+   just after — histogram rounds + chunk steps, compress chunk steps (twice
+   that for prowd), recover chunk steps for caesar and none otherwise —
+   with round walls, traffic per round, sim_time and peak memory; then one
+   round each of caesar and prowd, run unprofiled for its wall and again
+   (same round) under the profiler for device time by kernel;
 7. serve path: Qwen1.5-4B at full width (40 layers, d_model 2560, bf16,
    random weights from a seeded generator on the card), 4 prompts × 16
    tokens then 32 greedy tokens, with the counters zeroed just before and
@@ -264,23 +282,33 @@ def _scratch_zeroed(torch, build, after: str) -> None:
               f"{key[0]} holds {int(buf.count_nonzero())} non-zero words")
 
 
-def phase_kernels(torch, K, timer):
-    """Each compression kernel vs its plain version at the main path's
-    shapes: the histogram at 1 row and a full chunk, compress and recover
-    at every chunk rung of the dense HAR point (RUNGS)."""
+def phase_kernels(torch, K, timer, n=N_PARAMS, rungs=RUNGS,
+                  hist_rows=(1, CHUNK), per_row_timed=()):
+    """Each compression kernel vs its plain version at a path's shapes:
+    the histogram at ``hist_rows`` (the global model at 1 row, a chunk of
+    upload deltas), compress and recover at every chunk rung in
+    ``rungs``; at the rungs in ``per_row_timed`` compress is also timed on
+    x per row at per-row thresholds (ProWD's upload) and run twice to show
+    same-input calls bit-identical. Defaults: the dense HAR point (n =
+    164,134, drawn on the CPU); wider n are drawn on the card."""
     from repro_torch.core import compression as C
     from repro_torch.kernels import hybrid_compress as HC
     from repro_torch.kernels import recover as RC
     from repro_torch.kernels import topk_threshold as TT
 
-    gen = torch.Generator().manual_seed(0)
     dev = torch.device("cuda")
-    n = N_PARAMS
+    on_card = n != N_PARAMS
+    gen = torch.Generator(device=dev if on_card else "cpu").manual_seed(0)
+
+    def randn(rows):
+        r = torch.randn(rows, n, generator=gen, device=gen.device)
+        return r.to(dev)
+
     results = {}
-    for rows in RUNGS:
-        x = (torch.randn(rows, n, generator=gen) * 0.05).to(dev)
+    for rows in rungs:
+        x = randn(rows) * 0.05
         mx = torch.amax(x.abs(), dim=-1)
-        if rows in (1, CHUNK):
+        if rows in hist_rows:
             # histogram (global model at rows=1, upload deltas at CHUNK)
             hk = TT.magnitude_histogram(x, mx)
             hp = TT.magnitude_histogram_plain(x, mx)
@@ -329,8 +357,7 @@ def phase_kernels(torch, K, timer):
             edge[-1] = float("inf")
         if rows > 2:
             edge[1] = g.abs()[n // 2]
-        local = (g + torch.randn(rows, n, generator=gen).to(dev) * 0.01
-                 ).contiguous()
+        local = (g + randn(rows) * 0.01).contiguous()
         sum_err = rec_err = 0.0
         for src, t in ((x, edge), (g, edge), (x, thr), (g, thr)):
             ck = HC.hybrid_compress(src, t)
@@ -372,6 +399,9 @@ def phase_kernels(torch, K, timer):
             library_ms=None, bound_ms=bms, bound_by=by,
             grid=HC.compress_plan(rows, n, _sm_count(torch)),
             profile=own["kernels"])
+        if rows in per_row_timed:
+            results[("hybrid_compress_per_row", rows)] = _per_row_compress(
+                torch, timer, HC, C, x)
 
         # recover timed on the shared compression's outputs (the loop's
         # last ones)
@@ -392,6 +422,52 @@ def phase_kernels(torch, K, timer):
     for (name, rows), r in sorted(results.items()):
         print(f"kernel {name} rows={rows} n={n}: " + json.dumps(r))
     return results
+
+
+def _per_row_compress(torch, timer, HC, C, x) -> dict:
+    """Compress on x per row at per-row thresholds from each row's own
+    histogram, at upload ratios θ_u across [0.1, 0.6] (ProWD's upload):
+    exact against the plain version (Σ|x| within SUM_RTOL), two calls
+    bit-identical, one CUDA kernel per call; timed as in phase 3."""
+    rows, n = x.shape
+    ratio = torch.linspace(0.1, 0.6, rows, device=x.device)
+    thr = C.fused_threshold(x, ratio)
+    ck = HC.hybrid_compress(x, thr)
+    again = HC.hybrid_compress(x, thr)
+    cp = HC.hybrid_compress_plain(x, thr)
+    torch.cuda.synchronize()
+    what = f"compress rows={rows} n={n} x per row"
+    for i, name in ((0, "kept"), (1, "sign"), (2, "count"), (4, "max")):
+        check(torch.equal(ck[i], cp[i]), f"{what}: {name} differs from the "
+              "plain version")
+    check(all(torch.equal(a, b) for a, b in zip(ck, again)),
+          f"{what}: two calls on the same input differ")
+    check(bool((ck[2] > 0).all()), f"{what}: a row compressed nothing")
+    err = (ck[3] - cp[3]).abs()
+    check(bool((err <= SUM_RTOL * cp[3].abs() + 1e-30).all()),
+          f"{what}: sum_abs outside rtol {SUM_RTOL}")
+    ms = timer.ms(lambda: HC.hybrid_compress(x, thr))
+    own = _kernel_only(torch, timer.flush, lambda: HC.hybrid_compress(x, thr))
+    _one_kernel(what, own)
+    plain = timer.ms(lambda: HC.hybrid_compress_plain(x, thr))
+    # a yardstick for the stores alone: PyTorch's fills of the two outputs
+    # (the same bytes written, nothing read, no fold)
+    kept, sign = ck[0], ck[1]
+
+    def fills():
+        kept.fill_(0.0)
+        sign.fill_(0)
+    fill = _kernel_only(torch, timer.flush, fills)
+    bms, by = _bound(rows * n * 4 + rows * 4 + rows * n * 5 + rows * 12,
+                     3.0 * rows * n)
+    return dict(max_abs_err=float(err.max()), ms=ms,
+                kernel_only_ms=own["kernel_only_ms"], plain_ms=plain,
+                library_ms=None, bound_ms=bms, bound_by=by,
+                fills_kernel_only_ms=fill["kernel_only_ms"],
+                count_max=int(ck[2].max()),
+                grid=HC.compress_plan(rows, n, _sm_count(torch),
+                                      shared=False),
+                profile=own["kernels"])
 
 
 def _sm_count(torch) -> int:
@@ -483,47 +559,120 @@ def phase_decode(torch, timer):
     return results
 
 
+# schemes held cuda vs cpu on the small HAR config, and those whose two
+# same-seed card runs (and pipelined vs synchronous loop) must agree bit for
+# bit: Caesar, ProWD (compress on x per row) and PyramidFL (varying τ tiers,
+# planned on the main thread)
+PARITY_SCHEMES = ("caesar", "fedavg", "fic", "cac", "flexcom", "prowd",
+                  "pyramidfl")
+RERUN_SCHEMES = ("caesar", "prowd", "pyramidfl")
+TOPK_ELEMENT_BITS = 64           # index + f32 value of a top-k element
+HYBRID_ELEMENT_BITS = 31         # f32 value less its 1-bit sign
+
+
+def _flips(scheme: str, a: dict, b: dict) -> int:
+    """Elements whose compression selection differs between two runs in one
+    round, counted from each participant's payload bits (``round_log``
+    entries): an element on its threshold's bin edge to within f32
+    rounding is kept by one run and compressed by the other (one top-k
+    element: 64 bits; one hybrid element: 31)."""
+    up = HYBRID_ELEMENT_BITS if scheme == "prowd" else TOPK_ELEMENT_BITS
+    n = (float(abs(a["down_bits"] - b["down_bits"]).sum())
+         / HYBRID_ELEMENT_BITS
+         + float(abs(a["up_bits"] - b["up_bits"]).sum()) / up)
+    check(n == int(n), "a payload differs by other than whole elements")
+    return int(n)
+
+
+def _recording(torch, sim):
+    """Keep a CPU copy of the global vector after every round of ``sim``."""
+    step, sim.globals_per_round = sim.executor.step_ragged, []
+
+    def rec(*a, **k):
+        out = step(*a, **k)
+        sim.globals_per_round.append(out[0].detach().to("cpu", copy=True))
+        return out
+    sim.executor.step_ragged = rec
+    return sim
+
+
+def _parity_one(torch, SimConfig, Simulator, CaesarConfig, init, scheme):
+    """cuda vs cpu for one scheme. Exact over every round: participants,
+    plans, sim_time, waiting. Round by round until the first round in
+    which a compression selection flips (an element on its bin edge to
+    within f32 rounding): the global vector within PARITY_REL_L2 and the
+    payload bits exact; in that round, the global vector outside the
+    flipped elements. After it the two trajectories of a threshold-
+    quantized scheme may separate (a flip moves the next round's deltas,
+    their max and so every bin edge), so later rounds are reported, not
+    gated."""
+    runs = {}
+    kinds = [("cuda", True), ("cpu", True)]
+    if scheme in RERUN_SCHEMES:
+        kinds += [("cuda-again", True), ("cuda-sync", False)]
+    for dev, pipelined in kinds:
+        cfg = SimConfig(dataset="har", scheme=scheme, n_clients=12,
+                        participation=0.25, rounds=3, data_scale=0.2, seed=1,
+                        eval_every=1, caesar=CaesarConfig(tau=2, b_max=8),
+                        device=dev.split("-")[0], pipelined=pipelined)
+        sim = _recording(torch, Simulator(cfg, init_flat=init))
+        runs[dev] = (sim, sim.run())
+    (sg, hg), (sc, hc) = runs["cuda"], runs["cpu"]
+    for other, what in (("cuda-again", "two same-seed runs on the card"),
+                        ("cuda-sync", "pipelined and synchronous runs")):
+        if other in runs:
+            so, ho = runs[other]
+            check(torch.equal(sg.global_flat, so.global_flat)
+                  and hg.traffic_bits == ho.traffic_bits,
+                  f"{scheme}: {what} differ (the kernels' fixed-order folds "
+                  "and deterministic cuDNN should make them bit-identical)")
+    for a, b in zip(sg.round_log, sc.round_log):
+        check((a["parts"] == b["parts"]).all(),
+              f"{scheme}: participants differ")
+        for k in ("theta_d", "theta_u", "batch", "taus"):
+            check((a[k] == b[k]).all(),
+                  f"{scheme} round {a['round']}: plan {k} differs")
+    check(hg.sim_time == hc.sim_time, f"{scheme}: sim_time differs")
+    check(hg.waiting == hc.waiting, f"{scheme}: waiting differs")
+    rounds, gated = [], True
+    for a, b, ga, gb in zip(sg.round_log, sc.round_log, sg.globals_per_round,
+                            sc.globals_per_round):
+        flips = _flips(scheme, a, b)
+        d = ga - gb
+        norm = torch.linalg.vector_norm(gb)
+        kept = torch.ones_like(d, dtype=torch.bool)
+        kept[torch.topk(d.abs(), flips).indices] = False
+        rel = float(torch.linalg.vector_norm(d[kept]) / norm)
+        rounds.append({"round": a["round"], "flips": flips,
+                       "rel_l2_global": rel, "gated": gated,
+                       "rel_l2_global_with_flips": float(
+                           torch.linalg.vector_norm(d) / norm)})
+        if gated:
+            check(math.isfinite(rel) and rel <= PARITY_REL_L2,
+                  f"{scheme} round {a['round']}: global vector rel L2 {rel} "
+                  f"> {PARITY_REL_L2} outside {flips} flipped elements")
+        gated = gated and flips == 0
+    rel = _rel_l2(torch, sg.global_flat.cpu(), sc.global_flat)
+    tr = max(abs(a - b) / b for a, b in zip(hg.traffic_bits, hc.traffic_bits))
+    out = {"rel_l2_global": rel, "per_round": rounds,
+           "max_rel_traffic": tr, "acc_cuda": hg.accuracy,
+           "acc_cpu": hc.accuracy, "sim_time": hg.sim_time,
+           "bit_identical_reruns": sorted(set(runs) - {"cuda", "cpu"})}
+    print(f"parity {scheme} cuda vs cpu: " + json.dumps(out))
+    if scheme == "caesar":   # the slice-1 check, kept as it was
+        check(math.isfinite(rel) and rel <= PARITY_REL_L2,
+              f"global vector rel L2 {rel} > {PARITY_REL_L2}")
+    return out
+
+
 def phase_parity(torch, SimConfig, Simulator, CaesarConfig):
-    """The fast HAR config on cuda and on cpu from one initial vector."""
+    """The fast HAR config on cuda and on cpu from one initial vector, for
+    every scheme."""
     from repro_torch.models.paper_models import cnn_har_init
     init = cnn_har_init(torch.Generator().manual_seed(1))
-    runs = {}
-    for dev, pipelined in (("cuda", True), ("cuda-again", True),
-                           ("cuda-sync", False), ("cpu", True)):
-        cfg = SimConfig(dataset="har", n_clients=12, participation=0.25,
-                        rounds=3, data_scale=0.2, seed=1, eval_every=1,
-                        caesar=CaesarConfig(tau=2, b_max=8),
-                        device=dev.split("-")[0], pipelined=pipelined)
-        sim = Simulator(cfg, init_flat=init)
-        hist = sim.run()
-        runs[dev] = (sim, hist)
-    (sg, hg), (sc, hc) = runs["cuda"], runs["cpu"]
-    ss, hs = runs["cuda-sync"]
-    sa, ha = runs["cuda-again"]
-    check(torch.equal(sg.global_flat, sa.global_flat)
-          and hg.traffic_bits == ha.traffic_bits,
-          "two same-seed runs on the card differ (the kernels' fixed-order "
-          "folds should make them bit-identical)")
-    check(torch.equal(sg.global_flat, ss.global_flat)
-          and hg.traffic_bits == hs.traffic_bits,
-          "pipelined and synchronous runs differ on the card")
-    for a, b in zip(sg.round_log, sc.round_log):
-        check((a["parts"] == b["parts"]).all(), "participants differ")
-        for k in ("theta_d", "theta_u", "batch", "taus"):
-            check((a[k] == b[k]).all(), f"round {a['round']}: plan {k} differs")
-    check(hg.sim_time == hc.sim_time, "sim_time differs cuda vs cpu")
-    check(hg.waiting == hc.waiting, "waiting differs cuda vs cpu")
-    gg = sg.global_flat.cpu()
-    gc = sc.global_flat
-    rel = float(torch.linalg.vector_norm(gg - gc) / torch.linalg.vector_norm(gc))
-    tr = max(abs(a - b) / b for a, b in zip(hg.traffic_bits, hc.traffic_bits))
-    out = {"rel_l2_global": rel, "max_rel_traffic": tr,
-           "acc_cuda": hg.accuracy, "acc_cpu": hc.accuracy,
-           "sim_time": hg.sim_time}
-    print("parity cuda vs cpu: " + json.dumps(out))
-    check(math.isfinite(rel) and rel <= PARITY_REL_L2,
-          f"global vector rel L2 {rel} > {PARITY_REL_L2}")
-    return out
+    return {scheme: _parity_one(torch, SimConfig, Simulator, CaesarConfig,
+                                init, scheme)
+            for scheme in PARITY_SCHEMES}
 
 
 def phase_main(torch, K, SimConfig, Simulator, CaesarConfig):
@@ -539,9 +688,8 @@ def phase_main(torch, K, SimConfig, Simulator, CaesarConfig):
     counts = K.launch_counts()
     by_rows = K.launch_counts_by_rows()
     tel = sim.executor.telemetry()
-    calls, rounds = tel["chunk_calls"], tel["rounds"]
-    expect = {"magnitude_histogram": rounds + calls,
-              "hybrid_compress": calls, "recover": calls}
+    rounds = tel["rounds"]
+    expect = sim.executor.kernel_launches()
     print("main path launches: " + json.dumps(counts) + " expected "
           + json.dumps(expect))
     print("main path launches by chunk rows: " + json.dumps(by_rows))
@@ -595,6 +743,124 @@ def phase_profile(torch, cfg, Simulator, wall_per_round):
                             "launches_per_round": ev.count}
                            for ev in kernels[:15]]}
     print("profile (dense HAR, per round): " + json.dumps(out))
+    return out
+
+
+# the schemes path: the paper's ResNet-18 at its published width on
+# cifar10, each scheme for SCHEMES_ROUNDS rounds (the reference harness's
+# cifar10 τ and b_max, benchmarks/common.py; the SimConfig default cohort)
+SCHEMES_PATH = ("fedavg", "fic", "cac", "flexcom", "prowd", "pyramidfl",
+                "caesar")
+SCHEMES_ROUNDS = 3
+RESNET_PARAMS = 11164362         # resnet18 at width 64, 10 classes
+CIFAR_PARAMS = 699066            # cnn_cifar (resnet18 at width 16)
+SCHEMES_PROFILED = ("caesar", "prowd")
+
+
+def _schemes_cfg(SimConfig, CaesarConfig, scheme, rounds=SCHEMES_ROUNDS):
+    return SimConfig(dataset="cifar10", model="resnet18", scheme=scheme,
+                     n_clients=100, participation=0.1, data_scale=0.2,
+                     rounds=rounds, eval_every=rounds,
+                     caesar=CaesarConfig(tau=10, b_max=32), device="cuda")
+
+
+def phase_schemes(torch, K, SimConfig, Simulator, CaesarConfig):
+    """Every scheme through the port's entry points on ResNet-18 at width
+    64, the launch counters zeroed just before each run and read just
+    after: each must equal what the scheme's tier layout implies."""
+    out = {}
+    for scheme in SCHEMES_PATH:
+        cfg = _schemes_cfg(SimConfig, CaesarConfig, scheme)
+        t0 = time.perf_counter()
+        sim = Simulator(cfg)
+        setup_s = time.perf_counter() - t0
+        check(sim.n_params == RESNET_PARAMS, f"resnet18 has {sim.n_params} "
+              f"parameters, want {RESNET_PARAMS}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        hist = sim.run(log=print)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        by_rows = K.launch_counts_by_rows()
+        expect = sim.executor.kernel_launches()
+        tel = sim.executor.telemetry()
+        print(f"schemes path {scheme} launches: " + json.dumps(counts)
+              + " expected " + json.dumps(expect))
+        check(tel["rounds"] == cfg.rounds, f"{scheme}: ran {tel['rounds']} "
+              f"rounds, want {cfg.rounds}")
+        for name, want in expect.items():
+            check(counts[name] == want, f"{scheme}: {name} launched "
+                  f"{counts[name]} times, tier layout implies {want}")
+        check(counts["magnitude_histogram"] > 0
+              and counts["hybrid_compress"] > 0, f"{scheme}: a compression "
+              "kernel never launched")
+        check((counts["recover"] > 0) == (scheme == "caesar"),
+              f"{scheme}: recover launched {counts['recover']} times")
+        check(counts["decode_attention"] == 0, "decode ran on the FL path")
+        check(sim.store.pool.is_cuda and sim.global_flat.is_cuda,
+              f"{scheme}: pool/global vector not on the card")
+        check(bool(torch.isfinite(sim.global_flat).all()),
+              f"{scheme}: non-finite global vector")
+        check(all(math.isfinite(a) and 0.0 <= a <= 1.0
+                  for a in hist.accuracy), f"{scheme}: bad accuracy")
+        traffic = [float(e["down_bits"].sum() + e["up_bits"].sum())
+                   for e in sim.round_log]
+        out[scheme] = {
+            "setup_s": setup_s, "wall_per_round_s": hist.wall_per_round,
+            "traffic_bits_per_round": traffic, "sim_time": hist.sim_time,
+            "accuracy": hist.accuracy, "launches": counts,
+            "launches_by_rows": by_rows, "telemetry": tel,
+            "store": sim.store.telemetry(), "chunk": sim.executor.chunk,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+        print(f"schemes path {scheme}: " + json.dumps(out[scheme]))
+        del sim
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_schemes_profile(torch, SimConfig, Simulator, CaesarConfig,
+                          walls: dict):
+    """One round of each scheme in SCHEMES_PROFILED, run twice on one
+    simulator (`Simulator.reset` between, so both runs plan and compute
+    the same round): unprofiled for its wall, then profiled for device
+    time by kernel and the compression kernels' share. The busy share is
+    the second over the first; the schemes path's median wall of rounds
+    after the first is given beside it."""
+    out = {}
+    for scheme in SCHEMES_PROFILED:
+        sim = Simulator(_schemes_cfg(SimConfig, CaesarConfig, scheme,
+                                     rounds=1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sim.reset()
+        kernels, per_round = _profile_kernels(
+            torch, sim.run, f"profile_resnet18_{scheme}.txt")
+        warm = sorted(walls[scheme][1:] or walls[scheme])
+        ours = {}
+        for ev in kernels:
+            for name in ("magnitude_histogram_kernel", "hybrid_compress_kernel",
+                         "recover_kernel"):
+                if name in ev.key:
+                    ours[name] = ours.get(name, 0.0) + (
+                        ev.self_device_time_total / 1e3)
+        out[scheme] = {
+            "device_kernel_s_per_round": per_round,
+            "round_wall_s": wall,
+            "schemes_path_median_round_wall_s": warm[len(warm) // 2],
+            "device_busy_share": per_round / wall,
+            "compression_kernels_ms": ours,
+            "top_kernels": [{"name": ev.key[:90],
+                             "ms_per_round": ev.self_device_time_total / 1e3,
+                             "launches_per_round": ev.count}
+                            for ev in kernels[:15]]}
+        print(f"profile (resnet18 {scheme}, per round): "
+              + json.dumps(out[scheme]))
+        del sim
+        torch.cuda.empty_cache()
     return out
 
 
@@ -894,10 +1160,20 @@ def main() -> int:
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device="cuda")
     kres = timed("kernels", phase_kernels, torch, K, _Timer(torch, flush))
     _scratch_zeroed(torch, build, "the kernels phase")
+    # the schemes path's shapes: ResNet-18 (rungs 8 and 2 run there) and
+    # cnn_cifar, the chunk 8 of both; x per row is ProWD's upload
+    wide_timer = _Timer(torch, flush, windows=11)
+    wres = timed("kernels_resnet18", phase_kernels, torch, K, wide_timer,
+                 RESNET_PARAMS, (1, 2, 4, 8), (1, 8), (2, 8))
+    _scratch_zeroed(torch, build, "the kernels phase at n = 11,164,362")
+    cres = timed("kernels_cnn_cifar", phase_kernels, torch, K, wide_timer,
+                 CIFAR_PARAMS, (2, 8), (1, 8), (8,))
+    _scratch_zeroed(torch, build, "the kernels phase at n = 699,066")
     dres = timed("decode_kernel", phase_decode, torch,
                  _Timer(torch, flush, windows=11))
     _scratch_zeroed(torch, build, "the decode kernel phase")
-    del flush
+    del flush, wide_timer
+    torch.cuda.empty_cache()
     parity = timed("parity", phase_parity, torch, SimConfig, Simulator,
                    CaesarConfig)
     cfg, counts, by_rows, main_out = timed(
@@ -905,8 +1181,13 @@ def main() -> int:
         CaesarConfig)
     prof = timed("round_profile", phase_profile, torch, cfg, Simulator,
                  main_out["wall_per_round_s"])
+    schemes = timed("schemes_path", phase_schemes, torch, K, SimConfig,
+                    Simulator, CaesarConfig)
+    schemes_prof = timed(
+        "schemes_profile", phase_schemes_profile, torch, SimConfig, Simulator,
+        CaesarConfig, {k: v["wall_per_round_s"] for k, v in schemes.items()})
     serve_counts, serve = timed("serve_path", phase_serve, torch, K)
-    _scratch_zeroed(torch, build, "the round and serve paths")
+    _scratch_zeroed(torch, build, "the round, schemes and serve paths")
 
     replaces = {
         "magnitude_histogram": "src/repro/kernels/topk_threshold.py:34",
@@ -926,7 +1207,16 @@ def main() -> int:
             "kernel_only_ms": r["kernel_only_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": f"[{rows}, {N_PARAMS}]"})
+            "shape": f"[{rows}, {N_PARAMS}]",
+            "launches_schemes_path": {k: v["launches"][name]
+                                      for k, v in schemes.items()},
+            "resnet18": {f"[{r}, {RESNET_PARAMS}]{how}": {
+                k: wres[(key, r)][k] for k in (
+                    "ms", "kernel_only_ms", "bound_ms", "plain_ms",
+                    "library_ms", "max_abs_err")}
+                for key, how in ((name, ""),
+                                 (name + "_per_row", " x per row"))
+                for r in (1, 2, 8) if (key, r) in wres}})
         if name in by_rows:
             kernels[-1]["launches_by_rows"] = by_rows[name]
     r = dres["serve"]
@@ -948,8 +1238,13 @@ def main() -> int:
         json.dump({"card": smi, "build_s": build_s,
                    "kernels_all_shapes": {f"{k[0]}[rows={k[1]}]": v
                                           for k, v in kres.items()},
+                   "kernels_resnet18": {f"{k[0]}[rows={k[1]}]": v
+                                        for k, v in wres.items()},
+                   "kernels_cnn_cifar": {f"{k[0]}[rows={k[1]}]": v
+                                         for k, v in cres.items()},
                    "decode_all_shapes": dres,
                    "parity": parity, "main": main_out, "profile": prof,
+                   "schemes": schemes, "schemes_profile": schemes_prof,
                    "serve": serve, "phase_s": phase_s, "kernels": kernels},
                   f, indent=1)
     print(f"card: {smi}")

@@ -1,5 +1,6 @@
 """Pipelined round driver for Track A (paper Algorithm 1) — the port of
-``repro.fl.driver`` for Caesar's plan-shaped (ragged) in-process path.
+``repro.fl.driver`` for the plan-shaped (ragged) in-process path of every
+scheme: Caesar and the baselines of `repro_torch.fl.baselines`.
 
 * `SimConfig` — the simulation config (the reference's, with ``backend``
   replaced by ``device``);
@@ -18,12 +19,16 @@ allow_tf32`` and ``torch.backends.cuda.matmul.allow_tf32``), because the
 reference computes in f32, and asks cuDNN for deterministic algorithms so
 same-seed runs repeat. Planning and host sampling stay on the CPU.
 
-Pipelining: host producer work for round t+1 (participant draw, capability
-snapshot, Caesar plan + participation advance, tier-shaped batch gather)
-runs on a worker thread while the device executes round t. Every round
-draws from its own ``SeedSequence(seed, spawn_key=(2, t))`` stream and the
-batch-index draw is cap-shaped, so pipelined and synchronous runs consume
-identical randomness. The worker never touches the state store.
+Pipelining: host producer work for round t+1 runs on a worker thread while
+the device executes round t: participant draw, capability snapshot and the
+cap-shaped batch-index draw, then for Caesar the plan + participation
+advance and a tier-shaped batch gather. A baseline policy's worker gathers
+the cap-shaped batch instead, and the main thread plans after the previous
+round's `observe` (PyramidFL ranks by the last gradient norms) and slices
+the tiers out of it. Every round draws from its own
+``SeedSequence(seed, spawn_key=(2, t))`` stream and the index draw is the
+same in both paths, so pipelined and synchronous runs consume identical
+randomness. The worker never touches the state store.
 
 Configurations outside this slice raise ``NotImplementedError`` naming
 their ROADMAP item; none is silently ignored.
@@ -43,6 +48,7 @@ from repro_torch.core import caesar as CA
 from repro_torch.core import compression as C
 from repro_torch.core import rng as RNG
 from repro_torch.data import partition, synthetic
+from repro_torch.fl import baselines as BL
 from repro_torch.fl.capability import CapabilityModel
 from repro_torch.fl.executor import RoundExecutor, TierGroup
 from repro_torch.fl.planner import RoundPlanner
@@ -55,7 +61,7 @@ from repro_torch.optim import sgd as SGD
 class SimConfig:
     dataset: str = "cifar10"
     model: Optional[str] = None          # default: paper pairing
-    scheme: str = "caesar"               # only caesar is ported
+    scheme: str = "caesar"               # caesar | fedavg | fic | cac | flexcom | prowd | pyramidfl
     n_clients: int = 100
     participation: float = 0.1
     rounds: int = 100
@@ -73,6 +79,9 @@ class SimConfig:
     chunk_size: Optional[int] = None
     # overlap host sampling/planning of round t+1 with round t
     pipelined: bool = True
+    # preliminary-study variants (Fig. 1): fic/cac compress one direction
+    fic_down_only: bool = False
+    fic_up_only: bool = False
     # --- outside this slice: non-default values raise NotImplementedError
     ragged: bool = True                  # masked engine: ROADMAP 1 item 9
     buffer_dtype: str = "float32"        # bf16 pool: ROADMAP 1 item 9
@@ -89,9 +98,9 @@ def _check_slice(cfg: SimConfig) -> None:
         raise NotImplementedError(
             f"{what} is not ported to repro_torch yet (ROADMAP queue 1 item "
             f"{item})")
-    if cfg.scheme != "caesar":
-        nope(f"scheme={cfg.scheme!r} (baselines, incl. the quantize upload)",
-             12)
+    if cfg.scheme != "caesar" and cfg.scheme not in BL.POLICIES:
+        raise ValueError(f"unknown scheme {cfg.scheme!r}; want caesar or "
+                         f"one of {sorted(BL.POLICIES)}")
     if not cfg.ragged:
         nope("ragged=False (the masked engine)", 9)
     if cfg.buffer_dtype != "float32":
@@ -108,7 +117,8 @@ def _check_slice(cfg: SimConfig) -> None:
         nope(f"availability={cfg.availability!r}", 11)
     model = cfg.model or PM.DATASET_MODEL.get(cfg.dataset)
     if model not in PM.MODELS:
-        nope(f"model {model!r} (only cnn_har is ported)", 3)
+        raise ValueError(f"unknown model {model!r} for dataset "
+                         f"{cfg.dataset!r}; want one of {sorted(PM.MODELS)}")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -149,17 +159,29 @@ class History:
                 "total_traffic_gb": (self.traffic_bits[-1] / 8e9
                                      if self.traffic_bits else 0.0)}
 
+    def to_target(self, acc: float):
+        """(time_s, traffic_gb, round) when ``acc`` first reached, else None."""
+        for r, t, tr, a in zip(self.rounds, self.sim_time, self.traffic_bits,
+                               self.accuracy):
+            if a >= acc:
+                return t, tr / 8e9, r
+        return None
+
 
 @dataclasses.dataclass
 class RoundPkg:
     """Everything the driver needs to execute one round, produced by the
-    prefetch path (worker thread when pipelined)."""
+    prefetch path (worker thread when pipelined). ``plan`` and ``tiers``
+    are filled for Caesar (whose planner is execution-independent);
+    baseline policies plan on the main thread from ``xs``/``ys``."""
     parts: np.ndarray
     mu: np.ndarray
     bw_d: np.ndarray
     bw_u: np.ndarray
-    plan: tuple                  # (theta_d, theta_u, batch, taus) [P]
-    tiers: list                  # list[TierGroup]
+    plan: Optional[tuple] = None      # (theta_d, theta_u, batch, taus) [P]
+    xs: Optional[np.ndarray] = None   # cap-shaped [P, τ, b_max, ...]
+    ys: Optional[np.ndarray] = None
+    tiers: Optional[list] = None      # list[TierGroup]
 
 
 class Simulator:
@@ -181,10 +203,13 @@ class Simulator:
         self.data = ds_fn(seed=cfg.seed, scale=cfg.data_scale)
         model_name = cfg.model or PM.DATASET_MODEL[cfg.dataset]
         spec_fn, init_fn, self.apply_fn = PM.MODELS[model_name]
-        self.spec = spec_fn(n_classes=self.data.n_classes)
+        model_kw = {"n_classes": self.data.n_classes}
+        if model_name == "lr":
+            model_kw["n_features"] = self.data.x_train.shape[-1]
+        self.spec = spec_fn(**model_kw)
         if init_flat is None:
             gen = torch.Generator().manual_seed(cfg.seed)
-            self.flat0 = init_fn(gen, n_classes=self.data.n_classes)
+            self.flat0 = init_fn(gen, **model_kw)
         else:
             flat0 = (init_flat if isinstance(init_flat, torch.Tensor)
                      else torch.from_numpy(np.asarray(init_flat, np.float32)))
@@ -206,15 +231,28 @@ class Simulator:
         self.label_dist = label_dist
         self.cap = CapabilityModel(cfg.n_clients, cfg.seed)
         self.n_part = max(1, int(round(cfg.participation * cfg.n_clients)))
-        self.planner = RoundPlanner(cfg, volumes, label_dist, self.model_bits)
-        self.executor = RoundExecutor(cfg, self.apply_fn, self.spec,
-                                      self.n_part, self.device)
+        self.policy = (None if cfg.scheme == "caesar"
+                       else self._make_policy(cfg.scheme))
+        self.planner = RoundPlanner(cfg, volumes, label_dist, self.model_bits,
+                                    self.policy)
+        self.executor = RoundExecutor(
+            cfg, self.apply_fn, self.spec, self.n_part, self.device,
+            quantize=bool(getattr(self.policy, "quantize", False)))
         self.store: Optional[ClientStateStore] = None
         self.round_log: list = []
         ne = min(cfg.eval_samples, len(self.data.y_test))
         self._eval_x = torch.from_numpy(self.data.x_test[:ne]).to(self.device)
         self._eval_y = torch.from_numpy(
             self.data.y_test[:ne].astype(np.int64)).to(self.device)
+
+    def _make_policy(self, name):
+        if name == "fic":
+            return BL.FIC(compress_down=not self.cfg.fic_up_only,
+                          compress_up=not self.cfg.fic_down_only)
+        if name == "cac":
+            return BL.CAC(compress_down=not self.cfg.fic_up_only,
+                          compress_up=not self.cfg.fic_down_only)
+        return BL.POLICIES[name]()
 
     def _make_store(self) -> ClientStateStore:
         return ClientStateStore(self.cfg.n_clients, self.n_params, self.flat0,
@@ -256,6 +294,26 @@ class Simulator:
             idx[i] = rng.choice(pool[off[ci]:off[ci + 1]],
                                 size=(tau_cap, b_cap), replace=True)
         return idx
+
+    def _gather_cap(self, idx: np.ndarray, out):
+        """Gather the cap-shaped training batches for ``idx`` into ``out``
+        (a preallocated (xs, ys) pair, filled in place so the pipelined
+        driver's two buffer sets are reused every round)."""
+        xtr, ytr = self.data.x_train, self.data.y_train
+        xs, ys = out
+        flat = idx.reshape(-1)
+        np.take(xtr, flat, axis=0, out=xs.reshape((-1,) + xtr.shape[1:]))
+        np.take(ytr, flat, axis=0, out=ys.reshape((-1,) + ytr.shape[1:]))
+        return xs, ys
+
+    def _alloc_batch_buffers(self, n_parts: int):
+        """One cap-shaped (xs, ys) buffer set [P, τ, b_max, ...]."""
+        b_cap, tau_cap = self.cfg.caesar.b_max, self.cfg.caesar.tau
+        xtr, ytr = self.data.x_train, self.data.y_train
+        return (np.empty((n_parts, tau_cap, b_cap) + xtr.shape[1:],
+                         xtr.dtype),
+                np.empty((n_parts, tau_cap, b_cap) + ytr.shape[1:],
+                         ytr.dtype))
 
     def _plan_tiers(self, batch: np.ndarray, taus: np.ndarray) -> list:
         """Quantize the plan to the (b, τ) lattice and group participants
@@ -322,18 +380,43 @@ class Simulator:
                 ys=yv.reshape((g_pad, tau_t, b_t)), ws=ws, ims=ims))
         return tiers
 
+    def _tiers_from_cap(self, xs: np.ndarray, ys: np.ndarray, batch,
+                        taus) -> list:
+        """Tier groups sliced out of an already cap-gathered batch (the
+        policy-scheme path, where the plan needs execution feedback and is
+        only known on the main thread after the worker gathered)."""
+        tiers = []
+        for b_t, tau_t, pos in self._plan_tiers(batch, taus):
+            g = len(pos)
+            g_pad, slices = self.executor.tier_layout(g)
+            xs_t = np.zeros((g_pad, tau_t, b_t) + xs.shape[3:], xs.dtype)
+            xs_t[:g] = xs[pos, :tau_t, :b_t]
+            ys_t = np.zeros((g_pad, tau_t, b_t), ys.dtype)
+            ys_t[:g] = ys[pos, :tau_t, :b_t]
+            ws, ims = self._tier_masks(batch, taus, pos, b_t, tau_t, g_pad)
+            tiers.append(TierGroup(b=b_t, tau=tau_t, pos=pos, g_pad=g_pad,
+                                   slices=slices, xs=xs_t, ys=ys_t, ws=ws,
+                                   ims=ims))
+        return tiers
+
     def _prefetch_pkg(self, t: int, bufs: dict) -> RoundPkg:
         """The producer step for round t (worker thread when pipelined):
-        draw → capability snapshot → Caesar plan + participation advance →
-        tier-shaped batch gather. Never touches the state store."""
+        draw → capability snapshot → [Caesar: plan + participation advance
+        → tier-shaped batch gather | policy: cap-shaped batch gather].
+        Never touches the state store."""
         rng = self._round_rng(t)
         parts = self._select_participants(rng, t)
         idx = self._draw_indices(rng, parts)
         mu, bw_d, bw_u = self.cap.snapshot(t)
-        plan = self.planner.plan(t, parts, mu, bw_d, bw_u)
-        self.planner.advance(t, parts)
-        tiers = self._tiers_from_idx(idx, plan[2], plan[3], bufs)
-        return RoundPkg(parts, mu, bw_d, bw_u, plan=plan, tiers=tiers)
+        if self.planner.is_caesar:
+            plan = self.planner.plan(t, parts, mu, bw_d, bw_u)
+            self.planner.advance(t, parts)
+            tiers = self._tiers_from_idx(idx, plan[2], plan[3], bufs)
+            return RoundPkg(parts, mu, bw_d, bw_u, plan=plan, tiers=tiers)
+        if "cap" not in bufs:
+            bufs["cap"] = self._alloc_batch_buffers(self.n_part)
+        xs, ys = self._gather_cap(idx, bufs["cap"])
+        return RoundPkg(parts, mu, bw_d, bw_u, xs=xs, ys=ys)
 
     def _init_global(self) -> torch.Tensor:
         """Fresh [n_params] f32 global vector on the device (`flat0` itself
@@ -376,7 +459,13 @@ class Simulator:
                 parts = pkg.parts
                 mu, bw_d, bw_u = pkg.mu, pkg.bw_d, pkg.bw_u
                 lr = SGD.lr_at(cfg.sgd, torch.tensor(float(t - 1)))
-                theta_d, theta_u, batch, taus = pkg.plan
+                if pkg.plan is not None:
+                    theta_d, theta_u, batch, taus = pkg.plan
+                    tiers = pkg.tiers
+                else:   # a policy plans here, after round t-1's observe
+                    theta_d, theta_u, batch, taus = self.planner.plan(
+                        t, parts, mu, bw_d, bw_u)
+                    tiers = self._tiers_from_cap(pkg.xs, pkg.ys, batch, taus)
                 self.round_log.append({
                     "round": t, "parts": parts.copy(), "theta_d": theta_d,
                     "theta_u": theta_u, "batch": batch, "taus": taus})
@@ -384,7 +473,7 @@ class Simulator:
                 tu32 = np.asarray(theta_u, np.float32)
                 (global_f, down_bits, up_bits,
                  gnorms) = self.executor.step_ragged(
-                    global_f, store, parts, pkg.tiers, lr, td32, tu32, t=t)
+                    global_f, store, parts, tiers, lr, td32, tu32, t=t)
                 self.planner.observe(t, parts, gnorms)
 
                 # --- accounting: payload bits on the wire. step_ragged
@@ -422,7 +511,7 @@ class Simulator:
                     hist.waiting.append(waiting_sum / t)
                     warm = hist.wall_per_round[1:] or hist.wall_per_round
                     hist.wall.append(float(np.mean(warm)))
-                    log(f"[caesar/{cfg.dataset}] round {t:4d} "
+                    log(f"[{cfg.scheme}/{cfg.dataset}] round {t:4d} "
                         f"acc={acc:.4f} time={cum_time:,.0f}s "
                         f"traffic={cum_bits/8e9:.3f}GB "
                         f"wait={waiting_sum / t:.1f}s")
@@ -447,7 +536,7 @@ class Simulator:
         """Reset planner state so `run` can be repeated on the SAME
         simulator (`run` builds a fresh pool each call)."""
         self.planner = RoundPlanner(self.cfg, self.volumes, self.label_dist,
-                                    self.model_bits)
+                                    self.model_bits, self.policy)
 
     def global_params(self) -> dict:
         """Final global model as {name: view} (unflatten at the boundary)."""

@@ -1,5 +1,6 @@
 """Execution layer of the Track-A round engine — the port of
-``repro.fl.executor``'s plan-shaped (ragged), unsharded path.
+``repro.fl.executor``'s plan-shaped (ragged), unsharded path, for every
+scheme.
 
 The host groups the round's participants by quantized (b, τ) tier
 (`TierGroup`); `RoundExecutor.step_ragged` walks the tiers in order and,
@@ -10,11 +11,19 @@ chunk ladder), runs the per-participant round batched over the chunk:
    histogram of the global model per round (`_hist`);
 2. hybrid compress of the shared global vector at each participant's
    threshold — one kernel launch for the chunk;
-3. Fig.-3 recover against each participant's stale pool row — one launch;
+3. Caesar: Fig.-3 recover against each participant's stale pool row — one
+   launch; every other scheme: plain stale substitution on the compressed
+   slots (``torch.where``, as the reference leaves it to XLA);
 4. τ masked SGD steps on the chunk's stacked models (grouped conv + bmm,
    one backward of the summed per-participant losses);
-5. upload threshold (one histogram per participant, one launch) and
-   top-k sparsify of the upload delta.
+5. upload threshold (one histogram per participant, one launch), then
+   top-k sparsify of the upload delta — or, for ProWD (``quantize``), a
+   second hybrid compress, of the deltas row by row (x per row, one
+   launch), dequantized to sign·mean on the compressed slots.
+
+So a chunk step launches one histogram and one compress kernel for every
+scheme, plus one recover for Caesar and one more compress for ProWD; each
+round adds the global model's histogram.
 
 The uploads fold into the round's sum in fixed order (`weighted_row_fold`),
 the participants' new rows are written back into the pool in place
@@ -60,11 +69,15 @@ class RoundExecutor:
     parameter views and [c, B, ...] inputs to [c, B, n_classes] logits."""
 
     def __init__(self, cfg, apply_fn, spec: C.FlatSpec, n_part: int,
-                 device):
+                 device, quantize: bool = False):
         self.cfg = cfg
         self.apply_fn = apply_fn
         self.spec = spec
         self.device = torch.device(device)
+        # scheme switches, fixed for the simulation: Fig.-3 recovery of the
+        # download (Caesar only) and ProWD's quantized upload
+        self.use_recovery = cfg.scheme == "caesar"
+        self.quantize = bool(quantize)
         chunk_size = cfg.chunk_size
         if chunk_size is None:
             chunk_size = C.auto_chunk(spec.n_params, n_part)
@@ -73,9 +86,8 @@ class RoundExecutor:
         self.b_min = cfg.caesar.b_min
         # telemetry: cumulative per-tier participant counts, the distinct
         # tier-chunk shapes run, plan-shaped vs cap work, and the number of
-        # tier-chunk steps and rounds (each chunk step launches one
-        # compress, one recover and one histogram kernel; each round one
-        # more histogram)
+        # tier-chunk steps and rounds (`kernel_launches` turns them into the
+        # launches of each kernel)
         self.tier_occupancy: dict = {}
         self._shapes_seen: set = set()
         self.work_ragged = 0
@@ -115,6 +127,16 @@ class RoundExecutor:
         return (BS.tier_lattice_size(self.b_min, self.b_cap, self.tau_cap)
                 * len(self.chunk_rungs()))
 
+    def kernel_launches(self) -> dict:
+        """The compression-kernel launches the chunk steps and rounds run so
+        far imply: per chunk step one histogram and one compress, one more
+        compress with ``quantize`` and one recover with recovery; per round
+        one more histogram."""
+        calls = self.chunk_calls
+        return {"magnitude_histogram": self.rounds + calls,
+                "hybrid_compress": calls * (2 if self.quantize else 1),
+                "recover": calls if self.use_recovery else 0}
+
     def telemetry(self) -> dict:
         occ = {f"b{b}xt{t}": int(n)
                for (b, t), n in sorted(self.tier_occupancy.items())}
@@ -124,7 +146,8 @@ class RoundExecutor:
                 "work_fraction": (self.work_ragged / self.work_cap
                                   if self.work_cap else 1.0),
                 "chunk_calls": self.chunk_calls,
-                "rounds": self.rounds}
+                "rounds": self.rounds,
+                "kernel_launches": self.kernel_launches()}
 
     # -- the per-participant round, batched over a chunk --------------------
 
@@ -161,13 +184,23 @@ class RoundExecutor:
         mean_abs = ssum / torch.clamp(cnt, min=1).to(torch.float32)
         # sign == 0 marks a full-precision slot, so an exact-zero compressed
         # weight arrives as its true value 0 (the reference's convention)
-        w_init = C.fused_recover(kept, sign, local, mean_abs, smax)
+        if self.use_recovery:
+            w_init = C.fused_recover(kept, sign, local, mean_abs, smax)
+        else:   # plain stale substitution on the compressed slots
+            w_init = torch.where(sign != 0, local, kept)
         down_bits = C.hybrid_payload_bits(n_params, cnt)
         w_fin = self._local_train(w_init, xs, ys, ws, ims, lr)
         delta = w_init - w_fin
         gnorm = torch.linalg.vector_norm(delta, dim=-1)
         thr_u = C.fused_threshold(delta, theta_u)
-        up, up_bits = C.topk_sparsify_at(delta, thr_u)
+        if self.quantize:   # ProWD: 1-bit compressed slots at sign·mean
+            k2, s2, c2, ss2, _ = C.fused_compress(delta, thr_u)
+            mean2 = ss2 / torch.clamp(c2, min=1).to(torch.float32)
+            up = torch.where(s2 != 0, s2.to(torch.float32) * mean2[:, None],
+                             k2)
+            up_bits = C.hybrid_payload_bits(n_params, c2)
+        else:               # top-k sparsification
+            up, up_bits = C.topk_sparsify_at(delta, thr_u)
         return up, w_fin, down_bits, up_bits, gnorm
 
     def _tier_chunk_defer(self, store, global_f, g_cdf, g_max, slots, n_valid,

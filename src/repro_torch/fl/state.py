@@ -40,7 +40,7 @@ def _pow2(n: int) -> int:
 class ClientStateStore:
     def __init__(self, n_clients: int, n_params: int,
                  init_row: torch.Tensor, *, capacity: int | None = None,
-                 cohort: int = 1, device="cpu"):
+                 cohort: int = 1, device):
         if capacity not in (None, 0):
             raise NotImplementedError(
                 "state_capacity > 0 (capped pool with staleness-tiered "

@@ -3,7 +3,7 @@ a mesh (``mesh=None`` only).
 
 Public API (functions of a params dict, as the reference's pytree):
     init_params(cfg, generator, device)          -> params
-    from_reference(params_numpy_pytree, cfg)     -> params (a copy)
+    from_reference(params_numpy_pytree, cfg, device) -> params (a copy)
     init_cache(cfg, batch, seq, device)          -> cache
     forward(params, batch, cfg, device)          -> logits [B, S, V]
     prefill(params, batch, cfg, device)          -> last-position logits
@@ -126,7 +126,7 @@ def _to_tensor(a, dev: torch.device) -> torch.Tensor:
     return t.to(dev)
 
 
-def from_reference(params, cfg: ModelConfig, device="cpu") -> Params:
+def from_reference(params, cfg: ModelConfig, device="cuda") -> Params:
     """The reference's ``init_params`` pytree (numpy or jax arrays, stacked
     ``[L, ...]`` layers) as the port's parameters: the same nested dict,
     copied leaf by leaf in the same dtype."""

@@ -74,7 +74,8 @@ def test_tier_chunk_matches_reference(pair):
         jnp.asarray(a["td"]), jnp.asarray(a["tu"]), jnp.uint32(0))
 
     store = ClientStateStore(len(a["pool"]), ref.n_params,
-                             torch.from_numpy(a["g"]), capacity=0)
+                             torch.from_numpy(a["g"]), capacity=0,
+                             device="cpu")
     store.pool.copy_(torch.from_numpy(a["pool"]))
     tex = port.executor
     gc, gm = tex._hist(torch.from_numpy(a["g"]))

@@ -82,7 +82,9 @@ def test_capability_snapshots_byte_equal(seed):
                                     "repro_torch.fl.simulation",
                                     "repro_torch.models.model",
                                     "repro_torch.configs",
-                                    "repro_torch.kernels.flash_attention"])
+                                    "repro_torch.kernels.flash_attention",
+                                    "repro_torch.fl.baselines",
+                                    "repro_torch.models.paper_models"])
 def test_port_imports_neither_jax_nor_reference(module):
     code = (f"import sys; import {module}; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
@@ -110,8 +112,6 @@ _FAST = dict(dataset="har", n_clients=12, participation=0.25, rounds=1,
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(scheme="fedavg"), "item 12"),
-    (dict(scheme="prowd"), "item 12"),
     (dict(ragged=False), "item 9"),
     (dict(buffer_dtype="bfloat16"), "item 9"),
     (dict(caesar=T_CA.CaesarConfig(use_error_feedback=True)), "item 9"),
@@ -120,7 +120,6 @@ _FAST = dict(dataset="har", n_clients=12, participation=0.25, rounds=1,
     (dict(multi_host=True), "item 13"),
     (dict(wire="loopback"), "item 11"),
     (dict(availability="diurnal"), "item 11"),
-    (dict(dataset="cifar10"), "item 3"),
 ])
 def test_out_of_slice_configs_raise(override, item):
     cfg = dataclasses.replace(T_SIM.SimConfig(**_FAST), **override)

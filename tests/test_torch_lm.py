@@ -51,7 +51,7 @@ def model(request):
     rcfg = R_CFG.get(request.param).smoke()
     tcfg = T_CFG.get(request.param).smoke()
     rp = R_M.init_params(jax.random.PRNGKey(0), rcfg)
-    tp = T_M.from_reference(jax.tree.map(np.asarray, rp), tcfg)
+    tp = T_M.from_reference(jax.tree.map(np.asarray, rp), tcfg, device="cpu")
     tokens = _rng(1).integers(0, rcfg.vocab, (B, S)).astype(np.int32)
     return rcfg, rp, tcfg, tp, tokens
 
@@ -232,7 +232,7 @@ def test_place_at_4d_writes_in_place_like_the_one_hot_blend():
 
 
 def test_entry_points_default_to_cuda_and_never_fall_back(model):
-    _, _, tcfg, tp, tokens = model
+    _, rp, tcfg, tp, tokens = model
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the no-fallback rule is "
                     "checked where there is none")
@@ -246,6 +246,8 @@ def test_entry_points_default_to_cuda_and_never_fall_back(model):
         T_M.init_params(tcfg, torch.Generator())
     with pytest.raises(RuntimeError, match="cuda"):
         T_M.generate(tp, tcfg, torch.from_numpy(tokens), 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        T_M.from_reference(jax.tree.map(np.asarray, rp), tcfg)
 
 
 def test_tensors_on_another_device_are_refused(model):

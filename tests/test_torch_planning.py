@@ -222,7 +222,7 @@ def test_planner_over_rounds(seed, n, share):
     rc = RCA.CaesarConfig(tau=5, b_max=32)
     tc = TCA.CaesarConfig(tau=5, b_max=32)
     rp = RPL.RoundPlanner(_Cfg(n, rc), vol, ld, Q_BITS, None)
-    tp = TPL.RoundPlanner(_Cfg(n, tc), vol, ld, Q_BITS)
+    tp = TPL.RoundPlanner(_Cfg(n, tc), vol, ld, Q_BITS, None)
     if share:
         tp.caesar_state.importance = torch.tensor(
             np.asarray(rp.caesar_state.importance))

@@ -27,7 +27,8 @@ def test_slot_maps_equal_reference(capacity, n_clients, cohort, seed):
     ref = RS.ClientStateStore(n_clients, N_PARAMS, init, capacity=capacity,
                               cohort=cohort)
     port = TS.ClientStateStore(n_clients, N_PARAMS, torch.from_numpy(init),
-                               capacity=capacity, cohort=cohort)
+                               capacity=capacity, cohort=cohort,
+                               device="cpu")
     assert port.capacity == ref.capacity
     for t, parts in enumerate(_sequence(n_clients, cohort, 30, seed), 1):
         a, b = ref.prepare(parts, t), port.prepare(parts, t)
@@ -47,4 +48,5 @@ def test_slot_maps_equal_reference(capacity, n_clients, cohort, seed):
 
 def test_capped_pool_is_not_ported():
     with pytest.raises(NotImplementedError, match="item 10"):
-        TS.ClientStateStore(10, N_PARAMS, torch.zeros(N_PARAMS), capacity=4)
+        TS.ClientStateStore(10, N_PARAMS, torch.zeros(N_PARAMS), capacity=4,
+                            device="cpu")
