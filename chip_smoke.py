@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA card: the Track-A Caesar
-round on HAR, every scheme of the paper on its CIFAR-10 ResNet-18 at full
-width, and serving Qwen1.5-4B at full width.
+round on HAR (ragged, masked, error feedback with a bf16 pool), every
+scheme of the paper on its CIFAR-10 ResNet-18 at full width, the wire
+boundary (faults, robust aggregation) on ResNet-18, and serving Qwen1.5-4B
+at full width.
 
     python3 chip_smoke.py
 
@@ -12,18 +14,19 @@ Phases, each of which fails the script on any error:
 2. build: compiles the four CUDA kernels from src/repro_torch/kernels/csrc,
    one nvcc per source, all at once;
 3. kernels: each compression kernel against its plain PyTorch version on
-   the card at the round's shapes (n = 164,134; the histogram at 1 row and
-   a chunk of rows, compress and recover at every chunk rung 1, 2, 4, 8,
-   16 and 25, compress on the shared global vector and on x per row, at
-   the round's thresholds and at edge ones: 0, +inf, one equal to an |x|),
-   with CUDA-event timings of kernel, plain version and, for the
-   histogram, torch.histc as a yardstick, beside the bytes bound at
+   the card at the round's shapes (n = 164,134; the histogram, compress
+   and recover at every chunk rung 1, 2, 4, 8, 16, 17 (the chunk with
+   error feedback) and 25, compress on the shared global vector and on x
+   per row, at the round's thresholds and at edge ones: 0, +inf, one equal
+   to an |x|), with CUDA-event timings of kernel, plain version and, for
+   the histogram (at 1 and 25 rows), torch.histc as a yardstick, beside
+   the bytes bound at
    3.35 TB/s; and each kernel's own device time (``kernel_only_ms``, from
    a torch.profiler window of CUDA activity), which also shows that one
    call launches one CUDA kernel (checked for every kernel);
 3b. kernels at the schemes path's widths: the same checks and timings at
-   n = 11,164,362 (ResNet-18: histogram at 1 and 8 rows, compress on the
-   shared vector at rungs 1, 2, 4, 8, recover at each) and n = 699,066
+   n = 11,164,362 (ResNet-18: rungs 1, 2, 4, 8, the histogram timed at 1
+   and 8 rows) and n = 699,066
    (cnn_cifar: rungs 2 and 8), plus compress on x per row at per-row
    thresholds (ProWD's upload) at rungs 2 and 8 of the first and 8 of the
    second, each checked exact, run twice bit-identical and timed;
@@ -39,15 +42,34 @@ Phases, each of which fails the script on any error:
 5. parity: the small HAR config (12 clients) on cuda and on cpu within
    the port from one initial vector, for every scheme — participants,
    plans, sim_time and waiting identical, traffic within rtol 1e-5, the
-   global vector within a stated tolerance outside the elements whose
-   compression selection flipped (counted from the payload bits); and for
-   caesar, prowd and pyramidfl two same-seed runs on cuda, and pipelined
-   vs synchronous, bit-identical (deterministic kernels and cuDNN);
+   global vector after round 1 within 1e-6 and after later rounds within
+   1e-4 (while at most 100 elements have flipped so far) outside the
+   elements whose selection flipped, counted from each compress call's
+   sign mask and each top-k's drop mask (an exact-zero delta has sign 0
+   and a one-ulp delta ±1, so a sign change counts: the three ProWD flips
+   of round 1 are such, and no payload bit shows them); round 1's compress
+   calls on the card against the plain version on their own inputs, and
+   each of round 1's compress flips an exact zero on one device against at
+   most one ulp of its weight on the other; for caesar, prowd and pyramidfl
+   two same-seed runs on cuda, and pipelined vs synchronous, bit-identical
+   (deterministic kernels and cuDNN);
+5b. modes parity: on the same config, cuda vs cpu for the masked engine
+   (ragged=False), error feedback (caesar and prowd), the bf16 pool with
+   stochastic rounding and the zero-fault loopback wire, with the gates of
+   phase 5 (bf16: its own after round 1); a second same-seed card run of
+   each bit-identical (global, pool, EF pool), and the loopback run
+   bit-identical to the in-process one on the card;
 6. round path: the dense HAR point (1000 clients, participation 0.5,
    τ = 5, b_max = 32, 4 rounds) with the launch counters zeroed just
    before and read just after — each must equal what the tier layout
-   implies, and compress's and recover's launches are printed per chunk
-   rung; then a profiled 1-round rerun for the time breakdown;
+   implies, and each kernel's launches per chunk rows must fall on the
+   rungs phase 3 checked (so in every path below; 3b's at ResNet-18);
+   then a profiled 1-round rerun for the time breakdown;
+6a. modes path: the same point for 3 rounds each ragged f32, masked f32,
+   and ragged with error feedback and a bf16 pool (chunk 17) — launches
+   against ``kernel_launches()``, round walls, peak memory; then one round
+   each, unprofiled for its wall and again under the profiler for its
+   device time and busy share;
 6b. schemes path: fedavg, fic, cac, flexcom, prowd, pyramidfl and caesar,
    each for 3 rounds of ResNet-18 at width 64 (11,164,362 parameters) on
    cifar10 (100 clients, participation 0.1, data_scale 0.2, τ = 10,
@@ -57,6 +79,14 @@ Phases, each of which fails the script on any error:
    with round walls, traffic per round, sim_time and peak memory; then one
    round each of caesar and prowd, run unprofiled for its wall and again
    (same round) under the profiler for device time by kernel;
+6c. wire path: ResNet-18 at width 64 on cifar10 (100 clients, 10 per
+   round, τ 10, b_max 32, 3 rounds), Caesar with error feedback, a bf16
+   pool, the loopback wire, trimmed-mean aggregation and faults (10%
+   dropout, 5% corruption, 10% sign-flip attackers at ×10); then with the
+   plain mean, and clean: serialized bytes equal to the exact payload
+   model, fault counts, walls and peak memory, launches checked; the
+   attacked mean must move further from the clean run than the trimmed
+   mean; and fig11's robustness gate at its own config on the card;
 7. serve path: Qwen1.5-4B at full width (40 layers, d_model 2560, bf16,
    random weights from a seeded generator on the card), 4 prompts × 16
    tokens then 32 greedy tokens, with the counters zeroed just before and
@@ -93,9 +123,21 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 N_PARAMS = 164134                # cnn_har
 CHUNK = 25                       # auto_chunk at the dense HAR point
-RUNGS = (1, 2, 4, 8, 16, CHUNK)  # tier-chunk sizes the dense HAR point runs
+EF_CHUNK = 17                    # the same with error feedback's 2 arrays
+# tier-chunk sizes the dense HAR point runs: the power-of-two tail rungs
+# and the chunk, 25 ragged and masked, 17 with error feedback
+RUNGS = (1, 2, 4, 8, 16, EF_CHUNK, CHUNK)
+RESNET_RUNGS = (1, 2, 4, 8)      # the same at ResNet-18 width 64: chunk 8
 SUM_RTOL = 1e-5                  # kernel vs plain Σ|x|: summation order
 PARITY_REL_L2 = 1e-4             # cuda vs cpu global vector after 3 rounds
+# cuda vs cpu global vector after round 1, outside the flipped elements:
+# 10x the worst measured after three rounds (1.0e-7, H100)
+PARITY_ROUND1_REL_L2 = 1e-6
+# flips (cumulative over the rounds) past which a threshold-quantized
+# scheme's cuda and cpu trajectories have separated: the rounds from there
+# on are reported, not gated. ProWD on phase 5's config: 3 flips in round
+# 1, 1 in round 2, then 1585 in round 3 (H100)
+FLIP_CASCADE = 100
 # decode kernel vs its plain version (the reference's own tolerances):
 # f32 — the online softmax sums in another order; bf16 — one bf16 ulp of
 # the output is 2^-8 relative
@@ -185,35 +227,56 @@ def _bound(bytes_moved: float, f32_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _union_s(spans) -> float:
+    """Seconds covered by the union of (start, end) µs intervals."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e6
+
+
 def _profile_once(torch, run, pad_s: float):
     """torch.profiler over ``run()``, CUDA activity only (CPU operator
     events would only slow the trace), with ``pad_s`` seconds of host time
     before the first launch and after the last kernel ends: without them
     the tracer now and then delivers none of a short window's kernels
     (seen on the H100 after the timer's windows, with the tracer slow to
-    start). Returns the averages and the per-name CUDA events (kernels,
-    memsets, copies) among them."""
+    start). Returns the averages, the per-name CUDA events (kernels,
+    memsets, copies) among them, and the window: the host seconds of
+    ``run()`` under the profiler and the seconds in which at least one
+    CUDA event ran (``busy_s``, the union of their intervals)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(pad_s)
+        t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
         time.sleep(pad_s)
     averages = prof.key_averages()
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA
+             and not getattr(ev, "is_user_annotation", False)]
     return averages, [ev for ev in averages
                       if ev.device_type == DeviceType.CUDA
-                      and not getattr(ev, "is_user_annotation", False)]
+                      and not getattr(ev, "is_user_annotation", False)], {
+        "profiled_run_s": run_s, "busy_s": _union_s(spans)}
 
 
-def _cuda_events(torch, run, table_name: str | None = None):
+def _cuda_events(torch, run, table_name: str | None = None,
+                 window: dict | None = None):
     """The CUDA events of ``run()`` (see `_profile_once`). A window that
     records nothing is run again with longer pads, up to PROFILE_ATTEMPTS
     times, and then the script fails. The table goes to
-    OUT_DIR/<table_name> if given."""
+    OUT_DIR/<table_name> if given; ``window``, if given, gets the
+    window's host seconds and union of device intervals."""
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        averages, events = _profile_once(torch, run, PROFILE_PAD_S * attempt)
+        averages, events, win = _profile_once(torch, run,
+                                              PROFILE_PAD_S * attempt)
         if events:
             break
         print(f"note: the profiler recorded no CUDA kernel (attempt "
@@ -225,6 +288,8 @@ def _cuda_events(torch, run, table_name: str | None = None):
         with open(os.path.join(OUT_DIR, table_name), "w") as f:
             f.write(averages.table(sort_by="self_device_time_total",
                                    row_limit=40))
+    if window is not None:
+        window.update(win)
     return events
 
 
@@ -285,12 +350,12 @@ def _scratch_zeroed(torch, build, after: str) -> None:
 def phase_kernels(torch, K, timer, n=N_PARAMS, rungs=RUNGS,
                   hist_rows=(1, CHUNK), per_row_timed=()):
     """Each compression kernel vs its plain version at a path's shapes:
-    the histogram at ``hist_rows`` (the global model at 1 row, a chunk of
-    upload deltas), compress and recover at every chunk rung in
-    ``rungs``; at the rungs in ``per_row_timed`` compress is also timed on
-    x per row at per-row thresholds (ProWD's upload) and run twice to show
-    same-input calls bit-identical. Defaults: the dense HAR point (n =
-    164,134, drawn on the CPU); wider n are drawn on the card."""
+    the histogram, compress and recover at every chunk rung in ``rungs``
+    (the histogram timed at ``hist_rows``: the global model at 1 row, a
+    chunk of upload deltas); at the rungs in ``per_row_timed`` compress is
+    also timed on x per row at per-row thresholds (ProWD's upload) and run
+    twice to show same-input calls bit-identical. Defaults: the dense HAR
+    point (n = 164,134, drawn on the CPU); wider n are drawn on the card."""
     from repro_torch.core import compression as C
     from repro_torch.kernels import hybrid_compress as HC
     from repro_torch.kernels import recover as RC
@@ -308,13 +373,14 @@ def phase_kernels(torch, K, timer, n=N_PARAMS, rungs=RUNGS,
     for rows in rungs:
         x = randn(rows) * 0.05
         mx = torch.amax(x.abs(), dim=-1)
+        # histogram (the global model at rows=1, upload deltas at every
+        # chunk rung), timed at ``hist_rows``
+        hk = TT.magnitude_histogram(x, mx)
+        hp = TT.magnitude_histogram_plain(x, mx)
+        torch.cuda.synchronize()
+        check(torch.equal(hk, hp), f"histogram rows={rows}: counts differ")
+        check(int(hk.sum()) == rows * n, "histogram lost elements")
         if rows in hist_rows:
-            # histogram (global model at rows=1, upload deltas at CHUNK)
-            hk = TT.magnitude_histogram(x, mx)
-            hp = TT.magnitude_histogram_plain(x, mx)
-            torch.cuda.synchronize()
-            check(torch.equal(hk, hp), f"histogram rows={rows}: counts differ")
-            check(int(hk.sum()) == rows * n, "histogram lost elements")
             ms = timer.ms(lambda: TT.magnitude_histogram(x, mx))
             own = _kernel_only(torch, timer.flush,
                                lambda: TT.magnitude_histogram(x, mx))
@@ -570,12 +636,11 @@ TOPK_ELEMENT_BITS = 64           # index + f32 value of a top-k element
 HYBRID_ELEMENT_BITS = 31         # f32 value less its 1-bit sign
 
 
-def _flips(scheme: str, a: dict, b: dict) -> int:
+def _bit_flips(scheme: str, a: dict, b: dict) -> int:
     """Elements whose compression selection differs between two runs in one
-    round, counted from each participant's payload bits (``round_log``
-    entries): an element on its threshold's bin edge to within f32
-    rounding is kept by one run and compressed by the other (one top-k
-    element: 64 bits; one hybrid element: 31)."""
+    round, as the payload bits show them (``round_log`` entries; one top-k
+    element: 64 bits; one hybrid element: 31). A lower bound: two flips
+    that cancel within one payload leave the bits equal."""
     up = HYBRID_ELEMENT_BITS if scheme == "prowd" else TOPK_ELEMENT_BITS
     n = (float(abs(a["down_bits"] - b["down_bits"]).sum())
          / HYBRID_ELEMENT_BITS
@@ -584,28 +649,168 @@ def _flips(scheme: str, a: dict, b: dict) -> int:
     return int(n)
 
 
-def _recording(torch, sim):
-    """Keep a CPU copy of the global vector after every round of ``sim``."""
-    step, sim.globals_per_round = sim.executor.step_ragged, []
+class _Masks:
+    """Records, per call of ``C.fused_compress`` and ``C.topk_sparsify_at``
+    while installed, the selection each call made: the int8 sign mask of a
+    compress (0 marks a full-precision slot) or the dropped mask of a
+    top-k; ``ends[r]`` is the number of calls when round r + 1 ended. In the
+    first ``keep_rounds`` rounds it also keeps each compress call's inputs
+    and outputs on the device (``first``), for the kernel-vs-plain check on
+    the round's own tensors."""
 
-    def rec(*a, **k):
-        out = step(*a, **k)
-        sim.globals_per_round.append(out[0].detach().to("cpu", copy=True))
-        return out
-    sim.executor.step_ragged = rec
-    return sim
+    def __init__(self, C, keep_rounds: int = 1):
+        self.C, self.keep_rounds = C, keep_rounds
+        self.calls, self.ends, self.first = [], [], []
+
+    def install(self, sim, step_name: str = "step_ragged"):
+        """Wrap ``sim``'s round step (``step_ragged`` or ``step`` of its
+        executor, or its own ``_wire_round``), whose first output is the
+        round's new global vector."""
+        C, fc, tk = self.C, self.C.fused_compress, self.C.topk_sparsify_at
+        owner = sim if step_name == "_wire_round" else sim.executor
+        step = getattr(owner, step_name)
+        sim.globals_per_round = []
+
+        def compress(x, thr):
+            out = fc(x, thr)
+            self.calls.append(("compress", out[1].cpu(), x.dim()))
+            if len(self.ends) < self.keep_rounds:
+                self.first.append((x.clone(), thr.clone(),
+                                   [o.clone() for o in out]))
+            return out
+
+        def topk(g, thr):
+            self.calls.append(("topk", (g.abs() < thr.reshape(-1, 1)).cpu(),
+                               g.dim()))
+            return tk(g, thr)
+
+        def rec(*a, **k):
+            C.fused_compress, C.topk_sparsify_at = compress, topk
+            try:
+                out = step(*a, **k)
+            finally:
+                C.fused_compress, C.topk_sparsify_at = fc, tk
+            self.ends.append(len(self.calls))
+            sim.globals_per_round.append(out[0].detach().to("cpu",
+                                                            copy=True))
+            return out
+        setattr(owner, step_name, rec)
+        sim.masks = self
+        return sim
+
+    def round_calls(self, r: int) -> list:
+        return self.calls[(self.ends[r - 2] if r > 1 else 0):
+                          self.ends[r - 1]]
+
+
+def _mask_flips(ma: _Masks, mb: _Masks, r: int) -> tuple[int, dict]:
+    """Elements whose selection (sign mask or top-k drop mask) differs
+    between two runs in round r, and per call kind the count — this sees
+    the flips that cancel in the payload bits, and a compressed element's
+    sign change (0 for an exact zero vs ±1)."""
+    a, b = ma.round_calls(r), mb.round_calls(r)
+    check(len(a) == len(b), f"round {r}: {len(a)} vs {len(b)} calls")
+    n, kinds = 0, {}
+    for (ka, xa, da), (kb, xb, db) in zip(a, b):
+        check(ka == kb and xa.shape == xb.shape, f"round {r}: the call "
+              "streams differ")
+        f = int((xa != xb).sum())
+        n += f
+        key = f"{ka}{'_shared' if da == 1 else '_per_row'}"
+        kinds[key] = kinds.get(key, 0) + f
+    return n, kinds
+
+
+def _round1_kernel_check(torch, HC, masks: _Masks) -> dict:
+    """Each compress call of the card run's first round against the plain
+    version on the SAME device tensors: kept, sign, count and max exact,
+    Σ|x| within SUM_RTOL (the F1 check: ProWD's upload is compress on x
+    per row at chunks of 1–3 rows, n = 164,134)."""
+    worst = 0.0
+    for x, thr, out in masks.first:
+        want = HC.hybrid_compress_plain(x, thr)
+        for i, name in ((0, "kept"), (1, "sign"), (2, "count"), (4, "max")):
+            check(torch.equal(out[i], want[i]), f"round 1 compress "
+                  f"{tuple(x.shape)}: {name} differs from the plain version "
+                  "on the round's own inputs")
+        err = (out[3] - want[3]).abs()
+        check(bool((err <= SUM_RTOL * want[3].abs() + 1e-30).all()),
+              f"round 1 compress {tuple(x.shape)}: sum_abs outside rtol")
+        worst = max(worst, float((err / want[3].abs().clamp(min=1e-30))
+                                 .max()))
+    return {"calls": len(masks.first), "max_rel_sum_err": worst}
+
+
+def _round1_flips_are_zero_steps(torch, ma: _Masks, mb: _Masks,
+                                 w0) -> list:
+    """Round 1's compress flips between two runs (F1's kind): at every
+    element whose sign differs, one run's input is exactly 0 (sign 0) and
+    the other's at most one ulp of the element's round-1 weight ``w0``
+    (an SGD step that rounds to zero on one device only). Returns the
+    flipped elements' call, row, column and inputs."""
+    out = []
+    ulp = (torch.nextafter(w0.abs(), torch.tensor(math.inf)) - w0.abs())
+    for i, ((xa, _ta, oa), (xb, _tb, ob)) in enumerate(zip(ma.first,
+                                                           mb.first)):
+        sa, sb = oa[1].cpu(), ob[1].cpu()
+        for r, c in torch.nonzero(sa != sb).tolist():
+            va, vb = (float((x if x.dim() == 1 else x[r])[c])
+                      for x in (xa, xb))
+            out.append({"call": i, "row": r, "col": c, "x_a": va, "x_b": vb})
+            check(min(abs(va), abs(vb)) == 0.0
+                  and max(abs(va), abs(vb)) <= float(ulp[c]),
+                  f"round 1 compress flip at row {r}, column {c}: inputs "
+                  f"{va} and {vb}, not an exact zero against at most one "
+                  f"ulp ({float(ulp[c])}) of its weight")
+    return out
+
+
+def _gate_rounds(torch, what: str, sg, sc, gate_round1: float,
+                 gate_later: float, scheme: str) -> list:
+    """Round by round, cuda vs cpu: the global vector outside the elements
+    whose selection flipped so far (counted from the sign and drop masks,
+    over this round and the earlier ones: a flip moves its element of the
+    global vector for good) within ``gate_round1`` in round 1 and
+    ``gate_later`` after, while the flips so far are at most FLIP_CASCADE
+    (past that a threshold-quantized scheme's trajectories have separated:
+    the rounds from there on are reported, not gated)."""
+    rounds, total = [], 0
+    for r, (a, b, ga, gb) in enumerate(zip(
+            sg.round_log, sc.round_log, sg.globals_per_round,
+            sc.globals_per_round), start=1):
+        bits = _bit_flips(scheme, a, b)
+        flips, kinds = _mask_flips(sg.masks, sc.masks, r)
+        check(flips >= bits, f"{what} round {r}: {flips} mask flips but "
+              f"{bits} from the payload bits")
+        total += flips
+        d = ga - gb
+        norm = torch.linalg.vector_norm(gb)
+        kept = torch.ones_like(d, dtype=torch.bool)
+        kept[torch.topk(d.abs(), min(total, d.numel())).indices] = False
+        rel = float(torch.linalg.vector_norm(d[kept]) / norm)
+        gate = ((gate_round1 if r == 1 else gate_later)
+                if total <= FLIP_CASCADE else None)
+        rounds.append({"round": r, "flips": flips, "flips_so_far": total,
+                       "flips_by_call": kinds, "payload_bit_flips": bits,
+                       "rel_l2_global": rel, "gate": gate,
+                       "rel_l2_global_with_flips": float(
+                           torch.linalg.vector_norm(d) / norm)})
+        if gate is not None:
+            check(math.isfinite(rel) and rel <= gate,
+                  f"{what} round {r}: global vector rel L2 {rel} > {gate} "
+                  f"outside {total} flipped elements")
+    return rounds
 
 
 def _parity_one(torch, SimConfig, Simulator, CaesarConfig, init, scheme):
     """cuda vs cpu for one scheme. Exact over every round: participants,
-    plans, sim_time, waiting. Round by round until the first round in
-    which a compression selection flips (an element on its bin edge to
-    within f32 rounding): the global vector within PARITY_REL_L2 and the
-    payload bits exact; in that round, the global vector outside the
-    flipped elements. After it the two trajectories of a threshold-
-    quantized scheme may separate (a flip moves the next round's deltas,
-    their max and so every bin edge), so later rounds are reported, not
-    gated."""
+    plans, sim_time, waiting. The global vector round by round (see
+    `_gate_rounds`): round 1 within PARITY_ROUND1_REL_L2, later rounds
+    within PARITY_REL_L2 up to FLIP_CASCADE flips. Round 1's compress calls
+    on the card are checked against the plain version on their own inputs,
+    and round 1's compress flips must be F1's kind."""
+    from repro_torch.core import compression as C
+    from repro_torch.kernels import hybrid_compress as HC
     runs = {}
     kinds = [("cuda", True), ("cpu", True)]
     if scheme in RERUN_SCHEMES:
@@ -615,7 +820,7 @@ def _parity_one(torch, SimConfig, Simulator, CaesarConfig, init, scheme):
                         participation=0.25, rounds=3, data_scale=0.2, seed=1,
                         eval_every=1, caesar=CaesarConfig(tau=2, b_max=8),
                         device=dev.split("-")[0], pipelined=pipelined)
-        sim = _recording(torch, Simulator(cfg, init_flat=init))
+        sim = _Masks(C).install(Simulator(cfg, init_flat=init))
         runs[dev] = (sim, sim.run())
     (sg, hg), (sc, hc) = runs["cuda"], runs["cpu"]
     for other, what in (("cuda-again", "two same-seed runs on the card"),
@@ -634,29 +839,17 @@ def _parity_one(torch, SimConfig, Simulator, CaesarConfig, init, scheme):
                   f"{scheme} round {a['round']}: plan {k} differs")
     check(hg.sim_time == hc.sim_time, f"{scheme}: sim_time differs")
     check(hg.waiting == hc.waiting, f"{scheme}: waiting differs")
-    rounds, gated = [], True
-    for a, b, ga, gb in zip(sg.round_log, sc.round_log, sg.globals_per_round,
-                            sc.globals_per_round):
-        flips = _flips(scheme, a, b)
-        d = ga - gb
-        norm = torch.linalg.vector_norm(gb)
-        kept = torch.ones_like(d, dtype=torch.bool)
-        kept[torch.topk(d.abs(), flips).indices] = False
-        rel = float(torch.linalg.vector_norm(d[kept]) / norm)
-        rounds.append({"round": a["round"], "flips": flips,
-                       "rel_l2_global": rel, "gated": gated,
-                       "rel_l2_global_with_flips": float(
-                           torch.linalg.vector_norm(d) / norm)})
-        if gated:
-            check(math.isfinite(rel) and rel <= PARITY_REL_L2,
-                  f"{scheme} round {a['round']}: global vector rel L2 {rel} "
-                  f"> {PARITY_REL_L2} outside {flips} flipped elements")
-        gated = gated and flips == 0
+    rounds = _gate_rounds(torch, scheme, sg, sc, PARITY_ROUND1_REL_L2,
+                          PARITY_REL_L2, scheme)
+    kcheck = _round1_kernel_check(torch, HC, sg.masks)
     rel = _rel_l2(torch, sg.global_flat.cpu(), sc.global_flat)
     tr = max(abs(a - b) / b for a, b in zip(hg.traffic_bits, hc.traffic_bits))
     out = {"rel_l2_global": rel, "per_round": rounds,
            "max_rel_traffic": tr, "acc_cuda": hg.accuracy,
            "acc_cpu": hc.accuracy, "sim_time": hg.sim_time,
+           "round1_kernel_vs_plain": kcheck,
+           "round1_flips_cuda_vs_cpu": _round1_flips_are_zero_steps(
+               torch, sg.masks, sc.masks, init),
            "bit_identical_reruns": sorted(set(runs) - {"cuda", "cpu"})}
     print(f"parity {scheme} cuda vs cpu: " + json.dumps(out))
     if scheme == "caesar":   # the slice-1 check, kept as it was
@@ -673,6 +866,366 @@ def phase_parity(torch, SimConfig, Simulator, CaesarConfig):
     return {scheme: _parity_one(torch, SimConfig, Simulator, CaesarConfig,
                                 init, scheme)
             for scheme in PARITY_SCHEMES}
+
+
+# the modes of the masked engine, error feedback, the bf16 pool and the
+# wire boundary, held cuda vs cpu on phase 5's config: (scheme, SimConfig
+# overrides, the round step the recorder wraps)
+PARITY_MODES = {
+    "masked": ("caesar", {"ragged": False}, "step"),
+    "ef_caesar": ("caesar", {"ef": True}, "step_ragged"),
+    "ef_prowd": ("prowd", {"ef": True}, "step_ragged"),
+    "bf16_sr": ("caesar", {"buffer_dtype": "bfloat16"}, "step_ragged"),
+    "loopback": ("caesar", {"wire": "loopback"}, "_wire_round"),
+}
+# bf16 pool with stochastic rounding, cuda vs cpu after round 1 (outside
+# flipped elements): the two devices draw the same rounding noise (a
+# counter hash of (seed, row, column)), so only pool values whose f32
+# inputs straddle a rounding point differ, by one bf16 ulp. Measured on
+# the H100: 9.1e-8 after round 2, 1.3e-7 after round 3 (the pools 1.3e-5
+# apart); the bound is ~75x that
+BF16_PARITY_REL_L2 = 1e-5
+
+
+def _mode_cfg(SimConfig, CaesarConfig, scheme, over, dev, pipelined=True,
+              **extra):
+    over = dict(over)
+    ef = over.pop("ef", False)
+    return SimConfig(dataset="har", scheme=scheme, n_clients=12,
+                     participation=0.25, rounds=3, data_scale=0.2, seed=1,
+                     eval_every=1, device=dev, pipelined=pipelined,
+                     caesar=CaesarConfig(tau=2, b_max=8,
+                                         use_error_feedback=ef),
+                     **over, **extra)
+
+
+def phase_modes_parity(torch, SimConfig, Simulator, CaesarConfig):
+    """Each mode of PARITY_MODES on cuda and on cpu from one initial vector:
+    participants, plans, sim_time and waiting exact; the global vector
+    round by round within PARITY_ROUND1_REL_L2 after round 1 and
+    PARITY_REL_L2 later (bf16: BF16_PARITY_REL_L2 after round 1) outside
+    the flipped elements; a second same-seed run on the card bit-identical;
+    and the zero-fault loopback run bit-identical to the in-process one."""
+    from repro_torch.core import compression as C
+    from repro_torch.models.paper_models import cnn_har_init
+    init = cnn_har_init(torch.Generator().manual_seed(1))
+    inproc = Simulator(_mode_cfg(SimConfig, CaesarConfig, "caesar", {},
+                                 "cuda"), init_flat=init)
+    h_inproc = inproc.run()
+    out = {}
+    for mode, (scheme, over, step_name) in PARITY_MODES.items():
+        runs = {}
+        for dev in ("cuda", "cpu", "cuda-again"):
+            cfg = _mode_cfg(SimConfig, CaesarConfig, scheme, over,
+                            dev.split("-")[0])
+            sim = _Masks(C).install(Simulator(cfg, init_flat=init),
+                                    step_name)
+            runs[dev] = (sim, sim.run())
+        (sg, hg), (sc, hc) = runs["cuda"], runs["cpu"]
+        so, ho = runs["cuda-again"]
+        check(torch.equal(sg.global_flat, so.global_flat)
+              and torch.equal(sg.store.pool, so.store.pool)
+              and torch.equal(sg.store.ef_pool, so.store.ef_pool)
+              and hg.traffic_bits == ho.traffic_bits,
+              f"{mode}: two same-seed runs on the card differ")
+        for a, b in zip(sg.round_log, sc.round_log):
+            check((a["parts"] == b["parts"]).all()
+                  and all((a[k] == b[k]).all() for k in
+                          ("theta_d", "theta_u", "batch", "taus")),
+                  f"{mode} round {a['round']}: participants or plan differ")
+        check(hg.sim_time == hc.sim_time and hg.waiting == hc.waiting,
+              f"{mode}: sim_time or waiting differs")
+        bf16 = over.get("buffer_dtype") == "bfloat16"
+        rounds = _gate_rounds(
+            torch, mode, sg, sc, PARITY_ROUND1_REL_L2,
+            BF16_PARITY_REL_L2 if bf16 else PARITY_REL_L2, scheme)
+        res = {"scheme": scheme, "per_round": rounds,
+               "rel_l2_global": _rel_l2(torch, sg.global_flat.cpu(),
+                                        sc.global_flat),
+               "rel_l2_pool": _rel_l2(torch, sg.store.pool.float().cpu(),
+                                      sc.store.pool.float()),
+               "pool_dtype": str(sg.store.pool.dtype),
+               "ef_width": sg.executor.ef_width,
+               "ef_norm_cuda": float(sg.store.ef_pool.norm()),
+               "acc_cuda": hg.accuracy, "acc_cpu": hc.accuracy,
+               "launches": sg.executor.kernel_launches()}
+        if mode == "loopback":
+            check(torch.equal(sg.global_flat, inproc.global_flat)
+                  and hg.traffic_bits == h_inproc.traffic_bits
+                  and hg.sim_time == h_inproc.sim_time
+                  and hg.accuracy == h_inproc.accuracy,
+                  "zero-fault loopback differs from the in-process run on "
+                  "the card")
+            res["wire_bits"] = hg.wire_bits
+            res["bit_identical_to_inproc"] = True
+        out[mode] = res
+        print(f"modes parity {mode} cuda vs cpu: " + json.dumps(res))
+    return out
+
+
+# the dense HAR point in three modes: (name, SimConfig overrides)
+PATH_MODES = (("ragged_f32", {}), ("masked_f32", {"ragged": False}),
+              ("ragged_ef_bf16", {"buffer_dtype": "bfloat16", "ef": True}))
+PATH_ROUNDS = 3                  # the first cold, then 2 warm
+
+
+def _dense_cfg(SimConfig, CaesarConfig, rounds, over):
+    over = dict(over)
+    ef = over.pop("ef", False)
+    return SimConfig(dataset="har", n_clients=1000, participation=0.5,
+                     data_scale=1.0, rounds=rounds, eval_every=rounds,
+                     caesar=CaesarConfig(tau=5, b_max=32,
+                                         use_error_feedback=ef),
+                     device="cuda", **over)
+
+
+def phase_modes_path(torch, K, SimConfig, Simulator, CaesarConfig):
+    """The dense HAR point (cnn_har, 1000 clients, P = 500, τ 5, b_max 32)
+    for PATH_ROUNDS rounds in each of PATH_MODES, the counters zeroed just
+    before and read just after (each kernel's launches must equal
+    ``kernel_launches()``, and fall on the rungs phase 3 checked): round
+    walls and peak device memory; then one round on a fresh simulator, run
+    unprofiled for its wall and again (`Simulator.reset`, the same round)
+    under the profiler for its device time and busy share."""
+    out = {}
+    for name, over in PATH_MODES:
+        sim = Simulator(_dense_cfg(SimConfig, CaesarConfig, PATH_ROUNDS,
+                                   over))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        hist = sim.run()
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        by_rows = K.launch_counts_by_rows()
+        expect = sim.executor.kernel_launches()
+        for k, want in expect.items():
+            check(counts[k] == want and want > 0, f"modes path {name}: {k} "
+                  f"launched {counts[k]} times, the steps imply {want}")
+        _check_rows(f"modes path {name}", counts, by_rows, RUNGS)
+        check(bool(torch.isfinite(sim.global_flat).all()),
+              f"modes path {name}: non-finite global vector")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del sim
+        torch.cuda.empty_cache()
+        one = Simulator(_dense_cfg(SimConfig, CaesarConfig, 1, over))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        one.reset()
+        kernels, dev_s, win = _profile_kernels(
+            torch, one.run, f"profile_modes_{name}.txt")
+        warm = hist.wall_per_round[1:]
+        out[name] = {"wall_per_round_s": hist.wall_per_round,
+                     "warm_median_wall_s": sorted(warm)[len(warm) // 2],
+                     "profiled_round_unprofiled_wall_s": wall,
+                     "profiled_round_wall_s": win["profiled_run_s"],
+                     "device_kernel_s": dev_s,
+                     "device_busy_s": win["busy_s"],
+                     "device_busy_share": _busy_share(win["busy_s"], wall),
+                     "launches": counts, "launches_by_rows": by_rows,
+                     "expected": expect,
+                     "chunk": one.executor.chunk,
+                     "pool_dtype": str(one.store.pool.dtype),
+                     "peak_mem_gb": peak, "accuracy": hist.accuracy,
+                     "top_kernels": [{"name": ev.key[:90],
+                                      "ms": ev.self_device_time_total / 1e3,
+                                      "launches": ev.count}
+                                     for ev in kernels[:8]]}
+        print(f"modes path {name}: " + json.dumps(out[name]))
+        del one
+        torch.cuda.empty_cache()
+    return out
+
+
+# the wire boundary at full width: ResNet-18 (width 64) on cifar10, Caesar
+# with error feedback, a bf16 pool, the loopback wire, trimmed-mean
+# aggregation and faults; then the same config with the plain mean, and
+# clean, for fig11's robustness gate (benchmarks/fig11_faults.py:57,75-77)
+WIRE_FAULTS = dict(dropout_rate=0.1, corrupt_rate=0.05, byzantine_frac=0.1,
+                   attack="sign_flip", attack_scale=10.0)
+WIRE_RUNS = (("trimmed_mean", "trimmed_mean", True),
+             ("mean_attacked", "mean", True), ("clean", "mean", False))
+MEAN_DEVIATION_MIN = 1.0
+ROBUST_DEVIATION_MAX = 0.8
+ROBUST_ACC_TOL = 0.02
+
+
+def _wire_cfg(SimConfig, CaesarConfig, aggregation, faults):
+    from repro_torch.fl.faults import FaultConfig
+    base = _schemes_cfg(SimConfig, CaesarConfig, "caesar")
+    return dataclasses.replace(
+        base, caesar=CaesarConfig(tau=10, b_max=32, use_error_feedback=True),
+        buffer_dtype="bfloat16", wire="loopback", aggregation=aggregation,
+        faults=FaultConfig(**WIRE_FAULTS) if faults else FaultConfig())
+
+
+def phase_wire_path(torch, K, SimConfig, Simulator, CaesarConfig):
+    """WIRE_RUNS through the port's entry points, each for SCHEMES_ROUNDS
+    rounds: round walls, the serialized bytes against the exact payload
+    model (Σ payload_nbytes(n, k) over every transmission, a CRC retry
+    twice — they must be equal), the Eq.-7 upload bits beside them, fault
+    counts per status, peak device memory, launches against
+    ``kernel_launches()``. The three final global vectors: the attacked
+    mean must deviate from the clean run more than the trimmed mean, which
+    keeps the clean accuracy; then fig11's robustness gate at its own
+    config (`_fig11_gate`)."""
+    import numpy as np
+
+    from repro_torch.fl import faults as F
+    from repro_torch.fl import wire as W
+    out, finals = {}, {}
+    for name, agg, faulty in WIRE_RUNS:
+        sim = Simulator(_wire_cfg(SimConfig, CaesarConfig, agg, faulty))
+        check(sim.n_params == RESNET_PARAMS, "wire path: not ResNet-18 w64")
+        nnz = []
+        deferred = sim.executor.step_ragged_deferred
+
+        def rec(*a, _step=deferred, _nnz=nnz, **k):
+            res = _step(*a, **k)
+            n = np.zeros(len(a[2]), np.int64)
+            for pos_c, slots, _c, ups in res[0]:
+                n[pos_c] = (ups != 0).sum(1).cpu().numpy()[slots]
+            _nnz.append(n)
+            return res
+        sim.executor.step_ragged_deferred = rec
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        hist = sim.run(log=print)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        by_rows = K.launch_counts_by_rows()
+        expect = sim.executor.kernel_launches()
+        for k, want in expect.items():
+            check(counts[k] == want and want > 0, f"wire path {name}: {k} "
+                  f"launched {counts[k]} times, the steps imply {want}")
+        _check_rows(f"wire path {name}", counts, by_rows, RESNET_RUNGS)
+        modelled, measured, status = [], [], {}
+        for e, n in zip(sim.fault_log, nnz):
+            sent = e["status"] != F.DROP
+            modelled.append(int(sum(
+                W.payload_nbytes(sim.n_params, int(k))
+                * (1 + int(c)) for k, c, s in zip(n, e["corrupt_first"],
+                                                  sent) if s)))
+            measured.append(int(e["wire_bytes"]))
+            for code, label in ((F.OK, "ok"), (F.DROP, "drop"),
+                                (F.LATE, "late"),
+                                (F.CORRUPT_DROP, "corrupt_drop")):
+                status[label] = status.get(label, 0) + int(
+                    (e["status"] == code).sum())
+            status["byzantine"] = status.get("byzantine", 0) + int(
+                e["byz"].sum())
+            status["corrupt_first"] = status.get("corrupt_first", 0) + int(
+                e["corrupt_first"].sum())
+            status["crc_dropped"] = status.get("crc_dropped", 0) + int(
+                e["n_crc_dropped"])
+        check(modelled == measured, f"wire path {name}: serialized bytes "
+              f"{measured} != payload model {modelled}")
+        check(bool(torch.isfinite(sim.global_flat).all()),
+              f"wire path {name}: non-finite global vector")
+        check(sim.store.pool.dtype == torch.bfloat16
+              and sim.store.ef_pool.shape[1] == sim.n_params,
+              f"wire path {name}: pool is not bf16 with an EF pool")
+        up_bits = [float(e["up_bits"].sum()) for e in sim.round_log]
+        out[name] = {
+            "aggregation": agg, "faults": WIRE_FAULTS if faulty else None,
+            "wall_per_round_s": hist.wall_per_round,
+            "wire_bytes_per_round": measured,
+            "payload_model_bytes_per_round": modelled,
+            "eq7_upload_bits_per_round": up_bits,
+            "fault_counts": status, "accuracy": hist.accuracy,
+            "launches": counts, "launches_by_rows": by_rows,
+            "chunk": sim.executor.chunk, "store": sim.store.telemetry(),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "memory_budget_gb": {
+                "bf16_pool": sim.store.capacity * sim.n_params * 2 / 1e9,
+                "ef_pool": sim.store.capacity * sim.n_params * 4 / 1e9,
+                "uploads_per_chunk_host": sim.executor.chunk
+                * sim.n_params * 4 / 1e9}}
+        print(f"wire path {name}: " + json.dumps(out[name]))
+        finals[name] = (sim.global_flat.detach().cpu(), hist.accuracy[-1],
+                        sim.flat0)
+        del sim
+        torch.cuda.empty_cache()
+    g_clean, acc_clean, g0 = finals["clean"]
+    norm = float(torch.linalg.vector_norm(g_clean))
+    moved = float(torch.linalg.vector_norm(g_clean - g0))
+    dev = {k: float(torch.linalg.vector_norm(finals[k][0] - g_clean))
+           for k in ("mean_attacked", "trimmed_mean")}
+    gate = {"mean_deviation": dev["mean_attacked"] / norm,
+            "trimmed_deviation": dev["trimmed_mean"] / norm,
+            "mean_deviation_of_clean_step": dev["mean_attacked"] / moved,
+            "trimmed_deviation_of_clean_step": dev["trimmed_mean"] / moved,
+            "clean_acc": acc_clean,
+            "trimmed_acc": finals["trimmed_mean"][1],
+            "mean_attacked_acc": finals["mean_attacked"][1]}
+    out["resnet18_deviations"] = gate
+    print("wire path deviations (resnet18): " + json.dumps(gate))
+    # fig11's bounds are relative to the fault-free model's norm, which 3
+    # rounds of ResNet-18 barely move (the attacked mean 0.165 of it on
+    # the H100); here the attack must move the plain mean further than
+    # the trimmed mean, which must keep the fault-free accuracy (fig11's
+    # gate runs at its own config below)
+    check(gate["trimmed_deviation"] < gate["mean_deviation"]
+          and gate["trimmed_acc"] >= acc_clean - ROBUST_ACC_TOL,
+          f"wire path: trimmed mean no more robust than the mean: {gate}")
+    out["fig11_gate"] = _fig11_gate(torch, SimConfig, Simulator,
+                                    CaesarConfig)
+    return out
+
+
+def _fig11_gate(torch, SimConfig, Simulator, CaesarConfig) -> dict:
+    """fig11's robustness gate (benchmarks/fig11_faults.py:424-451) on the
+    card, at its own config (oppo_ts with 64 features → lr, 12 clients,
+    participation 0.5, τ 2, b_max 8, EF on, 8 rounds, the loopback wire):
+    a 10% sign-flip adversary moves the plain mean's global vector at least
+    MEAN_DEVIATION_MIN of the fault-free one's norm, while the trimmed mean
+    stays within ROBUST_DEVIATION_MAX and within ROBUST_ACC_TOL of the
+    fault-free accuracy."""
+    from repro_torch.fl.faults import FaultConfig
+
+    def final(aggregation, byz):
+        cfg = SimConfig(dataset="oppo_ts", rounds=8, n_clients=12,
+                        data_scale=0.01, eval_every=4, participation=0.5,
+                        dataset_kwargs={"n_features": 64}, device="cuda",
+                        caesar=CaesarConfig(tau=2, b_max=8,
+                                            use_error_feedback=True),
+                        wire="loopback", aggregation=aggregation,
+                        faults=FaultConfig(byzantine_frac=byz,
+                                           attack="sign_flip",
+                                           attack_scale=10.0))
+        sim = Simulator(cfg)
+        h = sim.run()
+        return sim.global_flat.detach().cpu(), h.accuracy[-1]
+
+    g_clean, acc_clean = final("mean", 0.0)
+    g_mean, acc_mean = final("mean", 0.1)
+    g_trim, acc_trim = final("trimmed_mean", 0.1)
+    norm = float(torch.linalg.vector_norm(g_clean))
+    gate = {"mean_deviation": float(torch.linalg.vector_norm(
+                g_mean - g_clean)) / norm,
+            "trimmed_deviation": float(torch.linalg.vector_norm(
+                g_trim - g_clean)) / norm,
+            "clean_acc": acc_clean, "mean_attacked_acc": acc_mean,
+            "trimmed_acc": acc_trim}
+    print("fig11 robustness gate (card): " + json.dumps(gate))
+    check(gate["mean_deviation"] >= MEAN_DEVIATION_MIN
+          and gate["trimmed_deviation"] <= ROBUST_DEVIATION_MAX
+          and acc_trim >= acc_clean - ROBUST_ACC_TOL,
+          f"fig11's robustness gate fails on the card: {gate}")
+    return gate
+
+
+def _check_rows(what: str, counts: dict, by_rows: dict, rungs) -> None:
+    """A path's launches by batch rows add up to its launches and fall on
+    the rungs that phase 3 held against the plain versions at its n."""
+    for name, per in by_rows.items():
+        check(sum(per.values()) == counts[name] and set(per) <= set(rungs),
+              f"{what}: {name}'s launches by rows {per} do not add up to "
+              f"{counts[name]} over the rungs {rungs} checked in phase 3")
 
 
 def phase_main(torch, K, SimConfig, Simulator, CaesarConfig):
@@ -698,10 +1251,7 @@ def phase_main(torch, K, SimConfig, Simulator, CaesarConfig):
         check(counts[name] > 0, f"{name} never launched on the main path")
         check(counts[name] == want, f"{name}: {counts[name]} launches, "
               f"tier layout implies {want}")
-    for name, per in by_rows.items():
-        check(sum(per.values()) == counts[name] and set(per) <= set(RUNGS),
-              f"{name}: launches by rows {per} do not add up to "
-              f"{counts[name]} over the rungs {RUNGS}")
+    _check_rows("main path", counts, by_rows, RUNGS)
     check(sim.store.pool.is_cuda and sim.global_flat.is_cuda,
           "pool/global vector not on the card")
     check(bool(torch.isfinite(sim.global_flat).all()), "non-finite global")
@@ -718,26 +1268,40 @@ def phase_main(torch, K, SimConfig, Simulator, CaesarConfig):
 
 
 def _profile_kernels(torch, fn, table_name):
-    """CUDA events of one call of ``fn``, sorted by device time, and their
-    total device seconds; the table goes to OUT_DIR/<table_name>."""
-    kernels = sorted(_cuda_events(torch, fn, table_name),
+    """CUDA events of one call of ``fn``, sorted by device time, their
+    total device seconds, and the window (`_profile_once`); the table goes
+    to OUT_DIR/<table_name>."""
+    window = {}
+    kernels = sorted(_cuda_events(torch, fn, table_name, window),
                      key=lambda ev: ev.self_device_time_total, reverse=True)
-    return kernels, sum(ev.self_device_time_total for ev in kernels) / 1e6
+    return (kernels, sum(ev.self_device_time_total for ev in kernels) / 1e6,
+            window)
+
+
+def _busy_share(busy_s: float, wall_s: float):
+    """The share of an unprofiled wall the card was busy: a profiled
+    rerun's union of device intervals over that wall. None where it comes
+    out above 1: the profiled rerun's device work does not fit in the
+    unprofiled wall, so it is not the same work and no share is given."""
+    share = busy_s / wall_s
+    return share if share <= 1.0 else None
 
 
 def phase_profile(torch, cfg, Simulator, wall_per_round):
     """Where the dense point's round time goes: a 1-round rerun under
     torch.profiler. Device time is summed over CUDA kernel events only;
-    the busy share is that kernel time per round over the UNPROFILED
+    the busy share is the union of their intervals over the UNPROFILED
     median wall of the main run's rounds after the first."""
     sim = Simulator(dataclasses.replace(cfg, rounds=1))
-    kernels, per_round = _profile_kernels(torch, sim.run,
-                                          "profile_dense_har.txt")
+    kernels, per_round, win = _profile_kernels(torch, sim.run,
+                                               "profile_dense_har.txt")
     warm = sorted(wall_per_round[1:] or wall_per_round)
     wall = warm[len(warm) // 2]
     out = {"device_kernel_s_per_round": per_round,
+           "device_busy_s_per_round": win["busy_s"],
+           "profiled_round_wall_s": win["profiled_run_s"],
            "median_round_wall_s": wall,
-           "device_busy_share": per_round / wall,
+           "device_busy_share": _busy_share(win["busy_s"], wall),
            "top_kernels": [{"name": ev.key[:90],
                             "ms_per_round": ev.self_device_time_total / 1e3,
                             "launches_per_round": ev.count}
@@ -792,6 +1356,7 @@ def phase_schemes(torch, K, SimConfig, Simulator, CaesarConfig):
         for name, want in expect.items():
             check(counts[name] == want, f"{scheme}: {name} launched "
                   f"{counts[name]} times, tier layout implies {want}")
+        _check_rows(f"schemes path {scheme}", counts, by_rows, RESNET_RUNGS)
         check(counts["magnitude_histogram"] > 0
               and counts["hybrid_compress"] > 0, f"{scheme}: a compression "
               "kernel never launched")
@@ -825,8 +1390,9 @@ def phase_schemes_profile(torch, SimConfig, Simulator, CaesarConfig,
     simulator (`Simulator.reset` between, so both runs plan and compute
     the same round): unprofiled for its wall, then profiled for device
     time by kernel and the compression kernels' share. The busy share is
-    the second over the first; the schemes path's median wall of rounds
-    after the first is given beside it."""
+    the second's union of device intervals over the first's wall
+    (`_busy_share`); the schemes path's median wall of rounds after the
+    first is given beside it."""
     out = {}
     for scheme in SCHEMES_PROFILED:
         sim = Simulator(_schemes_cfg(SimConfig, CaesarConfig, scheme,
@@ -837,7 +1403,7 @@ def phase_schemes_profile(torch, SimConfig, Simulator, CaesarConfig,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         sim.reset()
-        kernels, per_round = _profile_kernels(
+        kernels, per_round, win = _profile_kernels(
             torch, sim.run, f"profile_resnet18_{scheme}.txt")
         warm = sorted(walls[scheme][1:] or walls[scheme])
         ours = {}
@@ -849,9 +1415,11 @@ def phase_schemes_profile(torch, SimConfig, Simulator, CaesarConfig,
                         ev.self_device_time_total / 1e3)
         out[scheme] = {
             "device_kernel_s_per_round": per_round,
+            "device_busy_s_per_round": win["busy_s"],
             "round_wall_s": wall,
+            "profiled_round_wall_s": win["profiled_run_s"],
             "schemes_path_median_round_wall_s": warm[len(warm) // 2],
-            "device_busy_share": per_round / wall,
+            "device_busy_share": _busy_share(win["busy_s"], wall),
             "compression_kernels_ms": ours,
             "top_kernels": [{"name": ev.key[:90],
                              "ms_per_round": ev.self_device_time_total / 1e3,
@@ -959,7 +1527,7 @@ def phase_serve(torch, K):
     _teacher_forced(torch, M, params, cfg, window)
     torch.cuda.synchronize()
     window_s = time.perf_counter() - t0
-    kernels, dev_s = _profile_kernels(
+    kernels, dev_s, win = _profile_kernels(
         torch, lambda: _teacher_forced(torch, M, params, cfg, window),
         "profile_serve.txt")
     dec = _decode_events(kernels, cfg.n_layers * PROFILE_STEPS)
@@ -974,7 +1542,7 @@ def phase_serve(torch, K):
         "decode_tokens_per_s": SERVE_BATCH * steps / wall,
         "profile_steps": PROFILE_STEPS, "window_wall_s": window_s,
         "device_s_per_step": dev_s / PROFILE_STEPS,
-        "device_busy_share": dev_s / window_s,
+        "device_busy_share": _busy_share(win["busy_s"], window_s),
         "decode_kernel_ms_per_launch": dec["ms_per_launch"],
         "decode_kernel_share": dec["ms"] / (dev_s * 1e3),
         "kernel_vs_plain_rel_l2_max": max(rel),
@@ -1057,8 +1625,8 @@ def _long_cache_window(torch, M, FA, params, cfg):
     steps(LONG_STEPS)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    kernels, dev_s = _profile_kernels(torch, lambda: steps(LONG_STEPS),
-                                      "profile_serve_long.txt")
+    kernels, dev_s, win = _profile_kernels(
+        torch, lambda: steps(LONG_STEPS), "profile_serve_long.txt")
     dec = _decode_events(kernels, cfg.n_layers * LONG_STEPS)
     # last step: kernel path, then plain path, from the same cache
     steps(LONG_STEPS - 1)
@@ -1079,7 +1647,7 @@ def _long_cache_window(torch, M, FA, params, cfg):
            * cache["layers"]["k"].element_size() / 1e9,
            "ms_per_step": wall_s / LONG_STEPS * 1e3,
            "device_ms_per_step": dev_s / LONG_STEPS * 1e3,
-           "device_busy_share": dev_s / wall_s,
+           "device_busy_share": _busy_share(win["busy_s"], wall_s),
            "decode_kernel_ms_per_step": dec["ms"] / LONG_STEPS,
            "decode_kernel_ms_per_launch": dec["ms_per_launch"],
            "decode_kernel_share": dec["ms"] / (dev_s * 1e3),
@@ -1121,9 +1689,15 @@ def main() -> int:
         return 1
     sys.path.insert(0, src)
     import repro_torch.kernels as K
+    from repro_torch.core import compression as C
     from repro_torch.core.caesar import CaesarConfig
-    from repro_torch.fl.simulation import SimConfig, Simulator
+    from repro_torch.fl.simulation import EF_EXTRA_ARRAYS, SimConfig, Simulator
     from repro_torch.kernels import build
+
+    check(C.auto_chunk(N_PARAMS, 500) == CHUNK and C.auto_chunk(
+        N_PARAMS, 500, extra_arrays=EF_EXTRA_ARRAYS) == EF_CHUNK,
+          f"the dense HAR point's chunks are not {CHUNK} and {EF_CHUNK} "
+          "(with error feedback): RUNGS is out of date")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1176,16 +1750,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     parity = timed("parity", phase_parity, torch, SimConfig, Simulator,
                    CaesarConfig)
+    modes_parity = timed("modes_parity", phase_modes_parity, torch,
+                         SimConfig, Simulator, CaesarConfig)
     cfg, counts, by_rows, main_out = timed(
         "round_path", phase_main, torch, K, SimConfig, Simulator,
         CaesarConfig)
     prof = timed("round_profile", phase_profile, torch, cfg, Simulator,
                  main_out["wall_per_round_s"])
+    modes_path = timed("modes_path", phase_modes_path, torch, K, SimConfig,
+                       Simulator, CaesarConfig)
     schemes = timed("schemes_path", phase_schemes, torch, K, SimConfig,
                     Simulator, CaesarConfig)
     schemes_prof = timed(
         "schemes_profile", phase_schemes_profile, torch, SimConfig, Simulator,
         CaesarConfig, {k: v["wall_per_round_s"] for k, v in schemes.items()})
+    wire = timed("wire_path", phase_wire_path, torch, K, SimConfig,
+                 Simulator, CaesarConfig)
     serve_counts, serve = timed("serve_path", phase_serve, torch, K)
     _scratch_zeroed(torch, build, "the round, schemes and serve paths")
 
@@ -1210,6 +1790,11 @@ def main() -> int:
             "shape": f"[{rows}, {N_PARAMS}]",
             "launches_schemes_path": {k: v["launches"][name]
                                       for k, v in schemes.items()},
+            "launches_modes_path": {k: v["launches"][name]
+                                    for k, v in modes_path.items()},
+            "launches_wire_path": {k: v["launches"][name]
+                                   for k, v in wire.items()
+                                   if "launches" in v},
             "resnet18": {f"[{r}, {RESNET_PARAMS}]{how}": {
                 k: wres[(key, r)][k] for k in (
                     "ms", "kernel_only_ms", "bound_ms", "plain_ms",
@@ -1243,7 +1828,9 @@ def main() -> int:
                    "kernels_cnn_cifar": {f"{k[0]}[rows={k[1]}]": v
                                          for k, v in cres.items()},
                    "decode_all_shapes": dres,
-                   "parity": parity, "main": main_out, "profile": prof,
+                   "parity": parity, "modes_parity": modes_parity,
+                   "main": main_out, "profile": prof,
+                   "modes_path": modes_path, "wire_path": wire,
                    "schemes": schemes, "schemes_profile": schemes_prof,
                    "serve": serve, "phase_s": phase_s, "kernels": kernels},
                   f, indent=1)

@@ -23,7 +23,7 @@ class CaesarConfig:
     b_max: int = 32               # paper default batch size as the cap
     b_min: int = 1
     tau: int = 30                 # local iterations (paper: 30 / 10 for HAR)
-    use_error_feedback: bool = False   # not ported: raises in the simulator
+    use_error_feedback: bool = False   # beyond-paper toggle (off = faithful)
     use_batch_opt: bool = True         # §4.3 on/off (off = Caesar-DC ablation)
     use_deviation_compress: bool = True  # §4.1+4.2 on/off (off = Caesar-BR)
     # planning scope: "participants" (paper: Eq. 8–9 leader and §4.1

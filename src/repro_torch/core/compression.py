@@ -112,22 +112,91 @@ MIN_AUTO_CHUNK = 8
 CACHE_TARGET_MB = 64.0
 
 
-def auto_chunk(n_params: int, n_items: int, budget_mb: float = 1024.0) -> int:
+def auto_chunk(n_params: int, n_items: int, budget_mb: float = 1024.0,
+               extra_arrays: float = 0.0) -> int:
     """Participant chunk size from the model size and a working-set budget:
 
         chunk = min(budget_mb, CACHE_TARGET_MB)·2²⁰
-                / (ROUND_WORKSET_ARRAYS · 4 · n_params)
+                / ((ROUND_WORKSET_ARRAYS + extra_arrays) · 4 · n_params)
 
     clamped to [min(MIN_AUTO_CHUNK, n_items), n_items] — the reference's
-    rule (without its error-feedback term), so both packages run the same
-    chunk stream."""
+    rule, so both packages run the same chunk stream. ``extra_arrays``
+    counts step variants that keep more [chunk, n_params] f32 arrays live:
+    error feedback adds ~2 (the gathered residual rows and the new ones)."""
     if n_items <= 0:
         raise ValueError(f"n_items must be positive, got {n_items}")
     if n_params <= 0:
         raise ValueError(f"n_params must be positive, got {n_params}")
-    bytes_per_item = ROUND_WORKSET_ARRAYS * 4 * n_params
+    if extra_arrays < 0:
+        raise ValueError(f"extra_arrays must be >= 0, got {extra_arrays}")
+    bytes_per_item = (ROUND_WORKSET_ARRAYS + extra_arrays) * 4 * n_params
     chunk = int(min(budget_mb, CACHE_TARGET_MB) * 2 ** 20 // bytes_per_item)
     return max(min(MIN_AUTO_CHUNK, n_items), min(chunk, n_items))
+
+
+# ---------------------------------------------------------------------------
+# Stochastic rounding for the bf16 pool (plain torch: the reference leaves
+# the cast to XLA)
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x · c) mod 2³² for int64 ``x`` in [0, 2³²): split in 16-bit halves
+    so no int64 product overflows."""
+    lo = (x & 0xFFFF) * c
+    hi = ((x >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def _hash32(x: torch.Tensor) -> torch.Tensor:
+    """A bijective 32-bit integer hash ("lowbias32": xorshift-multiply)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def sr_noise(seed: int, rows: int, n: int, device) -> torch.Tensor:
+    """[rows, n] int64 noise in [0, 2¹⁶): the top 16 bits of a counter hash
+    of (seed, row, column), ``hash(hash(seed ^ (row+1)·φ) ^ column)`` with
+    φ = 0x9E3779B9. Integer ops only, so the CPU and the card draw the same
+    bits, and a rerun with the same seed draws them again."""
+    seed = int(seed) & _M32
+    r = torch.arange(1, rows + 1, dtype=torch.int64, device=device)
+    h_row = _hash32(_mul32(r, 0x9E3779B9) ^ seed)
+    col = torch.arange(n, dtype=torch.int64, device=device)
+    return _hash32(h_row[:, None] ^ col[None, :]) >> 16
+
+
+def stochastic_round_cast(x: torch.Tensor, dtype: torch.dtype,
+                          seed: int) -> torch.Tensor:
+    """f32 → ``dtype`` downcast with stochastic rounding (bf16 only).
+
+    Rounds |x| up to the next bf16 with probability equal to its fractional
+    position between its two bf16 neighbours (E[round(x)] = x): 16 random
+    bits are added below the bf16 mantissa of x's f32 bit pattern before the
+    low half is dropped — the reference's
+    ``repro.core.compression.stochastic_round_cast``. Exactly representable
+    values are fixed points (their low 16 bits are zero, so no carry can
+    reach the kept half), which is why masked and padded rows rewrite their
+    row unchanged. Non-bf16 targets are a plain cast.
+
+    ``x`` is [rows, n]. The noise comes from `sr_noise` (seed, row,
+    column), not from ``jax.random.bits``, so a port bf16 run is NOT bit-
+    equal to the reference's; it is bit-equal between the CPU and the card,
+    across same-seed reruns and between pipelined and synchronous runs (the
+    seed is the (round, chunk) SeedSequence draw)."""
+    if dtype != torch.bfloat16:
+        return x.to(dtype)
+    x2 = _rows(x).to(torch.float32).contiguous()
+    bits = x2.view(torch.int32).to(torch.int64) & _M32
+    noise = sr_noise(seed, x2.shape[0], x2.shape[1], x2.device)
+    r = ((bits + noise) >> 16) & 0xFFFF
+    r = r - ((r >> 15) << 16)          # two's complement int16 pattern
+    return r.to(torch.int16).view(torch.bfloat16).reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,9 @@
 """Pipelined round driver for Track A (paper Algorithm 1) — the port of
-``repro.fl.driver`` for the plan-shaped (ragged) in-process path of every
-scheme: Caesar and the baselines of `repro_torch.fl.baselines`.
+``repro.fl.driver`` for every scheme (Caesar and the baselines of
+`repro_torch.fl.baselines`), on the plan-shaped (ragged) or uniform-cap
+(masked) engine, with an f32 or bf16 pool, optional error feedback, and
+the wire boundary (serialized uploads, faults, robust aggregation) and
+diurnal availability.
 
 * `SimConfig` — the simulation config (the reference's, with ``backend``
   replaced by ``device``);
@@ -9,7 +12,8 @@ scheme: Caesar and the baselines of `repro_torch.fl.baselines`.
 * `Simulator` — builds data/partition/capability/planner/executor, creates
   the per-run `repro_torch.fl.state.ClientStateStore` pool, and runs the
   (optionally pipelined) round loop with Eq.-7 time/waiting accounting and
-  payload-faithful traffic accounting.
+  payload-faithful traffic accounting; with ``wire != "inproc"`` each round
+  goes through `Simulator._wire_round`.
 
 Device rule: the simulator runs on ``cfg.device`` (default ``"cuda"``).
 When CUDA is asked for and there is no card, the constructor raises — it
@@ -21,17 +25,19 @@ same-seed runs repeat. Planning and host sampling stay on the CPU.
 
 Pipelining: host producer work for round t+1 runs on a worker thread while
 the device executes round t: participant draw, capability snapshot and the
-cap-shaped batch-index draw, then for Caesar the plan + participation
-advance and a tier-shaped batch gather. A baseline policy's worker gathers
-the cap-shaped batch instead, and the main thread plans after the previous
-round's `observe` (PyramidFL ranks by the last gradient norms) and slices
-the tiers out of it. Every round draws from its own
+cap-shaped batch-index draw, then for ragged Caesar the plan, the round's
+fault draw, the participation advance and a tier-shaped batch gather. A
+baseline policy's worker (and masked Caesar's) gathers the cap-shaped batch
+instead, and the main thread plans after the previous round's `observe`
+(PyramidFL ranks by the last gradient norms) and slices the tiers out of
+it, or builds the masks of the masked engine. Every round draws from its own
 ``SeedSequence(seed, spawn_key=(2, t))`` stream and the index draw is the
 same in both paths, so pipelined and synchronous runs consume identical
 randomness. The worker never touches the state store.
 
-Configurations outside this slice raise ``NotImplementedError`` naming
-their ROADMAP item; none is silently ignored.
+Configurations outside the port so far (a capped pool with eviction,
+sharding) raise ``NotImplementedError`` naming their ROADMAP item; none is
+silently ignored.
 """
 from __future__ import annotations
 
@@ -48,7 +54,11 @@ from repro_torch.core import caesar as CA
 from repro_torch.core import compression as C
 from repro_torch.core import rng as RNG
 from repro_torch.data import partition, synthetic
+from repro_torch.fl import availability as AV
 from repro_torch.fl import baselines as BL
+from repro_torch.fl import faults as F
+from repro_torch.fl import robust as RB
+from repro_torch.fl import wire as W
 from repro_torch.fl.capability import CapabilityModel
 from repro_torch.fl.executor import RoundExecutor, TierGroup
 from repro_torch.fl.planner import RoundPlanner
@@ -76,20 +86,49 @@ class SimConfig:
     # or "cpu" (the kernels' plain twins — tests and small runs)
     device: str = "cuda"
     # participants per tier chunk; None ⇒ core.compression.auto_chunk
+    # against chunk_budget_mb (and the EF carry); 0 ⇒ one chunk of all
     chunk_size: Optional[int] = None
+    # working-set budget (MB) the auto-tuned chunk targets
+    chunk_budget_mb: float = 1024.0
     # overlap host sampling/planning of round t+1 with round t
     pipelined: bool = True
     # preliminary-study variants (Fig. 1): fic/cac compress one direction
     fic_down_only: bool = False
     fic_up_only: bool = False
-    # --- outside this slice: non-default values raise NotImplementedError
-    ragged: bool = True                  # masked engine: ROADMAP 1 item 9
-    buffer_dtype: str = "float32"        # bf16 pool: ROADMAP 1 item 9
+    # plan-shaped ragged execution; False runs the uniform-cap masked
+    # engine (every participant at [τ, b_max] with zero-weight masks)
+    ragged: bool = True
+    # storage dtype of the client-state pool rows: "float32" | "bfloat16"
+    # (compute stays f32: gathers upcast, scatters downcast)
+    buffer_dtype: str = "float32"
+    # bf16 pools: stochastically round the scatter downcast (unbiased,
+    # per-(round, chunk) seed) instead of round-to-nearest-even
+    stochastic_round: bool = True
+    # synthetic-task overrides (e.g. {"n_features": 64} for oppo_ts)
+    dataset_kwargs: Optional[dict] = None
+    # --- wire boundary: "inproc" folds uploads in process; "loopback"
+    # serializes every upload through the wire codec and an in-process FIFO
+    # (bit-identical at zero faults); "queue" through a multiprocessing
+    # queue. Faults and non-mean aggregation need a wire.
+    wire: str = "inproc"
+    faults: F.FaultConfig = dataclasses.field(default_factory=F.FaultConfig)
+    # server aggregation: mean | trimmed_mean | norm_clip | median | krum
+    aggregation: str = "mean"
+    trim_frac: float = 0.1               # trimmed_mean: trimmed per extreme
+    clip_norm: Optional[float] = None    # norm_clip: None ⇒ median norm
+    # wire value precision: float32 (exact) | bfloat16 (truncated, lossy)
+    wire_value_dtype: str = "float32"
+    # who is samplable each round: "always" (every client) or diurnal
+    availability: AV.AvailabilityConfig = dataclasses.field(
+        default_factory=AV.AvailabilityConfig)
+    # krum: assumed attackers f (None ⇒ round(trim_frac·cohort)) and the
+    # multi-Krum selection size m (None ⇒ cohort − f − 2)
+    krum_f: Optional[int] = None
+    krum_m: Optional[int] = None
+    # --- not ported yet: non-default values raise NotImplementedError
     state_capacity: Optional[int] = None  # >0 eviction: ROADMAP 1 item 10
     sharded: bool = False                # ROADMAP 1 item 13
     multi_host: bool = False             # ROADMAP 1 item 13
-    wire: str = "inproc"                 # ROADMAP 1 item 11
-    availability: str = "always"         # diurnal: ROADMAP 1 item 11
 
 
 def _check_slice(cfg: SimConfig) -> None:
@@ -101,20 +140,27 @@ def _check_slice(cfg: SimConfig) -> None:
     if cfg.scheme != "caesar" and cfg.scheme not in BL.POLICIES:
         raise ValueError(f"unknown scheme {cfg.scheme!r}; want caesar or "
                          f"one of {sorted(BL.POLICIES)}")
-    if not cfg.ragged:
-        nope("ragged=False (the masked engine)", 9)
-    if cfg.buffer_dtype != "float32":
-        nope(f"buffer_dtype={cfg.buffer_dtype!r}", 9)
-    if cfg.caesar.use_error_feedback:
-        nope("use_error_feedback", 9)
     if cfg.state_capacity not in (None, 0):
         nope("a capped state pool with eviction/offload", 10)
     if cfg.sharded or cfg.multi_host:
         nope("sharded / multi_host execution", 13)
+    if cfg.wire not in ("inproc", "loopback", "queue"):
+        raise ValueError(f"unknown wire {cfg.wire!r} "
+                         "(want inproc|loopback|queue)")
+    if cfg.aggregation not in RB.AGGREGATIONS:
+        raise ValueError(f"unknown aggregation {cfg.aggregation!r}; "
+                         f"want one of {RB.AGGREGATIONS}")
+    if cfg.wire == "inproc" and (cfg.faults.enabled()
+                                 or cfg.aggregation != "mean"):
+        raise ValueError(
+            "fault injection and non-mean aggregation act on SERIALIZED "
+            "payloads — set wire='loopback' (or 'queue')")
     if cfg.wire != "inproc":
-        nope(f"wire={cfg.wire!r} (and the robust aggregations)", 11)
-    if cfg.availability != "always":
-        nope(f"availability={cfg.availability!r}", 11)
+        if cfg.scheme != "caesar":
+            raise ValueError("the wire engine supports scheme='caesar' only")
+        if not cfg.ragged:
+            raise ValueError("the wire engine requires ragged=True (it "
+                             "replays the tier-chunk stream)")
     model = cfg.model or PM.DATASET_MODEL.get(cfg.dataset)
     if model not in PM.MODELS:
         raise ValueError(f"unknown model {model!r} for dataset "
@@ -152,6 +198,9 @@ class History:
     waiting_per_round: list = dataclasses.field(default_factory=list)
     wall_per_round: list = dataclasses.field(default_factory=list)
     compile_s: float = 0.0
+    # wire engine only: cumulative SERIALIZED bytes×8 actually sent
+    # (headers, bitpacked indices, CRC, retransmissions); empty inproc
+    wire_bits: list = dataclasses.field(default_factory=list)
 
     def summary(self) -> dict:
         return {"final_acc": self.accuracy[-1] if self.accuracy else 0.0,
@@ -182,6 +231,9 @@ class RoundPkg:
     xs: Optional[np.ndarray] = None   # cap-shaped [P, τ, b_max, ...]
     ys: Optional[np.ndarray] = None
     tiers: Optional[list] = None      # list[TierGroup]
+    fplan: Optional[F.FaultPlan] = None   # wire engine: round fault draw
+    n_eligible: int = 0               # availability: online client count
+    n_forced: int = 0                 # cohort shortfall force-woken
 
 
 class Simulator:
@@ -200,7 +252,8 @@ class Simulator:
             torch.backends.cudnn.deterministic = True
             torch.backends.cudnn.benchmark = False
         ds_fn = synthetic.DATASETS[cfg.dataset]
-        self.data = ds_fn(seed=cfg.seed, scale=cfg.data_scale)
+        self.data = ds_fn(seed=cfg.seed, scale=cfg.data_scale,
+                          **(cfg.dataset_kwargs or {}))
         model_name = cfg.model or PM.DATASET_MODEL[cfg.dataset]
         spec_fn, init_fn, self.apply_fn = PM.MODELS[model_name]
         model_kw = {"n_classes": self.data.n_classes}
@@ -237,13 +290,53 @@ class Simulator:
                                     self.policy)
         self.executor = RoundExecutor(
             cfg, self.apply_fn, self.spec, self.n_part, self.device,
-            quantize=bool(getattr(self.policy, "quantize", False)))
+            quantize=bool(getattr(self.policy, "quantize", False)),
+            use_ef=cfg.caesar.use_error_feedback)
         self.store: Optional[ClientStateStore] = None
         self.round_log: list = []
+        # --- wire boundary: persistent attacker set and the aggregator
+        self._wire_on = cfg.wire != "inproc"
+        if self._wire_on:
+            self._byz_members = F.byzantine_members(
+                cfg.faults, cfg.seed, cfg.n_clients)
+            self._aggregator = RB.make_aggregator(
+                cfg.aggregation, cohort=self.n_part,
+                trim_frac=cfg.trim_frac, clip_norm=cfg.clip_norm,
+                krum_f=cfg.krum_f, krum_m=cfg.krum_m, device=self.device)
+        # uploads deferred from round t-1 under late_policy="defer":
+        # (client id, WireUpload)
+        self._deferred: list = []
+        self._transport = None
+        # one dict per round: fault status, attackers and byte counts
+        self.fault_log: list = []
+        # --- availability: static per-client home phases, read-only after
+        # init (the prefetch worker shares them)
+        self._avail_on = cfg.availability.enabled()
+        self._avail_phases = (AV.client_phases(cfg.availability, cfg.seed,
+                                               cfg.n_clients)
+                              if self._avail_on else None)
+        # one dict per round: eligibility counts + participant staleness
+        self.avail_log: list = []
+        self._last_part = np.zeros(cfg.n_clients, np.int64)
         ne = min(cfg.eval_samples, len(self.data.y_test))
         self._eval_x = torch.from_numpy(self.data.x_test[:ne]).to(self.device)
         self._eval_y = torch.from_numpy(
             self.data.y_test[:ne].astype(np.int64)).to(self.device)
+
+    # planner-owned state, exposed for tests and benchmarks
+    @property
+    def caesar_state(self):
+        return self.planner.caesar_state
+
+    @property
+    def grad_norms(self):
+        return self.planner.grad_norms
+
+    @property
+    def splits(self):
+        """Per-client sample-index views over the CSR split storage."""
+        return [self._split_idx[self._split_off[i]:self._split_off[i + 1]]
+                for i in range(self.cfg.n_clients)]
 
     def _make_policy(self, name):
         if name == "fic":
@@ -257,7 +350,9 @@ class Simulator:
     def _make_store(self) -> ClientStateStore:
         return ClientStateStore(self.cfg.n_clients, self.n_params, self.flat0,
                                 capacity=self.cfg.state_capacity,
-                                cohort=self.n_part, device=self.device)
+                                cohort=self.n_part, device=self.device,
+                                ef_width=self.executor.ef_width,
+                                dtype=self.executor.buf_dtype)
 
     def _eval(self, flat: torch.Tensor, x: torch.Tensor,
               y: torch.Tensor) -> torch.Tensor:
@@ -277,10 +372,23 @@ class Simulator:
         return RNG.stream(self.cfg.seed, RNG.KIND_SAMPLING, t)
 
     def _select_participants(self, rng: np.random.Generator, t: int
-                             ) -> np.ndarray:
-        """Round t's cohort: a uniform draw without replacement (the
-        reference's availability-"always" draw, byte-identical)."""
-        return rng.choice(self.cfg.n_clients, self.n_part, replace=False)
+                             ) -> tuple[np.ndarray, int, int]:
+        """Round t's cohort draw → (parts, n_eligible, n_forced): a uniform
+        draw without replacement over every client ("always"), or over the
+        round's eligible set (diurnal availability), force-waking the
+        shortfall uniformly from the offline clients when fewer are online
+        than the cohort needs — the reference's draw, byte-identical."""
+        n = self.cfg.n_clients
+        if not self._avail_on:
+            return rng.choice(n, self.n_part, replace=False), n, 0
+        mask = AV.eligible_mask(self.cfg.availability, self.cfg.seed, t, n,
+                                self._avail_phases)
+        el = np.flatnonzero(mask)
+        if len(el) >= self.n_part:
+            return rng.choice(el, self.n_part, replace=False), len(el), 0
+        forced = rng.choice(np.flatnonzero(~mask), self.n_part - len(el),
+                            replace=False)
+        return np.concatenate([el, forced]), len(el), len(forced)
 
     def _draw_indices(self, rng: np.random.Generator,
                       parts: np.ndarray) -> np.ndarray:
@@ -314,6 +422,19 @@ class Simulator:
                          xtr.dtype),
                 np.empty((n_parts, tau_cap, b_cap) + ytr.shape[1:],
                          ytr.dtype))
+
+    @staticmethod
+    def _batch_masks(batch_sizes, taus, b_cap, tau_cap):
+        """Per-participant (sample-weight [P,τ,b], iter-mask [P,τ]) masks
+        realizing the planned batch sizes and local-iteration counts on the
+        cap-shaped batches (the masked engine)."""
+        p = len(batch_sizes)
+        ws = np.zeros((p, tau_cap, b_cap), np.float32)
+        for i, b in enumerate(batch_sizes):
+            ws[i, :, :int(b)] = 1.0
+        ims = (np.arange(tau_cap)[None, :]
+               < np.asarray(taus)[:, None]).astype(np.float32)
+        return ws, ims
 
     def _plan_tiers(self, batch: np.ndarray, taus: np.ndarray) -> list:
         """Quantize the plan to the (b, τ) lattice and group participants
@@ -399,24 +520,202 @@ class Simulator:
                                    ims=ims))
         return tiers
 
+    def _plan_faults(self, t: int, parts: np.ndarray, plan: tuple, mu,
+                     bw_d, bw_u) -> Optional[F.FaultPlan]:
+        """Round t's fault draw (pure numpy, on the prefetch worker), or
+        None when the wire engine is off."""
+        if not self._wire_on:
+            return None
+        cfg = self.cfg
+        times = None
+        if cfg.faults.straggler_deadline > 0.0:
+            theta_d, theta_u, batch, taus = plan
+            times = F.round_times_np(
+                np.asarray(theta_d, np.float64),
+                np.asarray(theta_u, np.float64),
+                float(self.model_bits), bw_d[parts], bw_u[parts],
+                np.asarray(taus, np.float64),
+                np.asarray(batch, np.float64), mu[parts])
+        return F.plan_faults(cfg.faults, cfg.seed, t, parts, times,
+                             self._byz_members)
+
     def _prefetch_pkg(self, t: int, bufs: dict) -> RoundPkg:
         """The producer step for round t (worker thread when pipelined):
-        draw → capability snapshot → [Caesar: plan + participation advance
-        → tier-shaped batch gather | policy: cap-shaped batch gather].
-        Never touches the state store."""
+        draw → capability snapshot → [ragged Caesar: plan + fault draw +
+        participation advance → tier-shaped batch gather | otherwise:
+        cap-shaped batch gather]. Never touches the state store."""
         rng = self._round_rng(t)
-        parts = self._select_participants(rng, t)
+        parts, n_el, n_forced = self._select_participants(rng, t)
         idx = self._draw_indices(rng, parts)
         mu, bw_d, bw_u = self.cap.snapshot(t)
-        if self.planner.is_caesar:
+        if self.planner.is_caesar and self.cfg.ragged:
             plan = self.planner.plan(t, parts, mu, bw_d, bw_u)
-            self.planner.advance(t, parts)
+            fplan = self._plan_faults(t, parts, plan, mu, bw_d, bw_u)
+            # failed rounds never advance their clients' participation
+            # record (their pool rows roll back too)
+            self.planner.advance(
+                t, parts if fplan is None else parts[fplan.record])
             tiers = self._tiers_from_idx(idx, plan[2], plan[3], bufs)
-            return RoundPkg(parts, mu, bw_d, bw_u, plan=plan, tiers=tiers)
+            return RoundPkg(parts, mu, bw_d, bw_u, plan=plan, tiers=tiers,
+                            fplan=fplan, n_eligible=n_el, n_forced=n_forced)
         if "cap" not in bufs:
             bufs["cap"] = self._alloc_batch_buffers(self.n_part)
         xs, ys = self._gather_cap(idx, bufs["cap"])
-        return RoundPkg(parts, mu, bw_d, bw_u, xs=xs, ys=ys)
+        return RoundPkg(parts, mu, bw_d, bw_u, xs=xs, ys=ys,
+                        n_eligible=n_el, n_forced=n_forced)
+
+    # ------------------------------------------------------------------
+    # The wire-boundary round: deferred tier-chunk step → per-client
+    # serialize (+ attack/corrupt) → transport → server decode + robust
+    # aggregate. It replays the chunk stream the in-process engine folds,
+    # so zero faults + mean + f32 values is bit-identical to it.
+    # ------------------------------------------------------------------
+
+    def _wire_round(self, global_f, store, pkg: RoundPkg, tiers, lr,
+                    td32, tu32, t: int):
+        cfg = self.cfg
+        fp = pkg.fplan
+        parts = pkg.parts
+        chunks, db_o, ub_o, gn_o = self.executor.step_ragged_deferred(
+            global_f, store, parts, tiers, lr, td32, tu32, t=t,
+            wmask=fp.adopt)
+
+        # -- client side: serialize each surviving upload, in chunk-stream
+        # order (send order is part of the bit-identity contract). Pass 1
+        # collects the honest sparse uploads (one host copy per chunk),
+        # pass 2 swaps in the adversarial payloads and transmits: the
+        # colluding ALIE vector needs the round's honest statistics first.
+        tr = self._transport
+        wire_bytes = 0
+        resent = np.zeros(len(parts), bool)
+        sent = []        # pos (parts order) in send order
+        retained = {}    # pos -> clean payload, for the retry-once path
+        rows = []        # (pos, idx [k], vals [k]) in chunk-stream order
+        for pos_c, slots, c, ups in chunks:
+            ups_np = ups.cpu().numpy()
+            for row_i, pos in zip(slots, pos_c):
+                pos = int(pos)
+                if fp.status[pos] == F.DROP:
+                    continue
+                row = ups_np[row_i]
+                idx = np.flatnonzero(row)
+                rows.append((pos, idx, row[idx]))
+        alie = None
+        if cfg.faults.attack == "alie" and bool(fp.byz.any()):
+            hsum = np.zeros(self.n_params, np.float64)
+            hsq = np.zeros(self.n_params, np.float64)
+            hn, hks, hnorms = 0, [], []
+            for pos, idx, vals in rows:
+                if fp.byz[pos]:
+                    continue
+                v64 = vals.astype(np.float64)
+                hsum[idx] += v64
+                hsq[idx] += v64 * v64
+                hn += 1
+                hks.append(len(idx))
+                hnorms.append(float(np.linalg.norm(v64)))
+            if hn:
+                alie = F.alie_payload(cfg.faults, hsum, hsq, hn,
+                                      int(np.median(hks)),
+                                      float(np.median(hnorms)))
+        for pos, idx, vals in rows:
+            if fp.byz[pos]:
+                idx, vals = F.attack_payload(
+                    cfg.faults, cfg.seed, t, int(parts[pos]), idx, vals,
+                    self.n_params, alie=alie)
+            payload = W.encode_upload(
+                idx, vals, client=int(parts[pos]), round_=t,
+                n_params=self.n_params, value_dtype=cfg.wire_value_dtype)
+            retained[pos] = payload
+            wire_bytes += len(payload)
+            if fp.corrupt_first[pos]:
+                payload = F.flip_bit(payload, cfg.seed, t, int(parts[pos]),
+                                     salt=0)
+            tr.send(payload)
+            sent.append(pos)
+        payloads = (tr.drain(len(sent)) if cfg.wire == "queue"
+                    else tr.drain())
+
+        # -- server side: decode + CRC check, retry-once, deadline sort
+        accepted = []        # (pos, WireUpload) folded THIS round
+        deferred_next = []   # (client, WireUpload) arriving next round
+        n_crc_drop = 0
+        for pos, payload in zip(sent, payloads):
+            try:
+                u = W.decode_upload(payload)
+            except W.WireCRCError:
+                # retry-once: the client retransmits its retained payload
+                # (priced as real traffic); a corrupted retry drops it
+                p2 = retained[pos]
+                wire_bytes += len(p2)
+                resent[pos] = True
+                if fp.status[pos] == F.CORRUPT_DROP:
+                    p2 = F.flip_bit(p2, cfg.seed, t, int(parts[pos]),
+                                    salt=1)
+                try:
+                    u = W.decode_upload(p2)
+                except W.WireCRCError:
+                    n_crc_drop += 1
+                    continue
+            if fp.status[pos] == F.LATE:
+                if cfg.faults.late_policy == "defer":
+                    deferred_next.append((int(parts[pos]), u))
+                continue
+            accepted.append((pos, u))
+        defer_in = self._deferred
+        self._deferred = deferred_next
+
+        # -- robust aggregate: replay the chunk stream + late arrivals
+        agg = self._aggregator
+        if agg.needs_norms:
+            norms = np.asarray(
+                [float(np.linalg.norm(u.values)) for _, u in accepted]
+                + [float(np.linalg.norm(u.values)) for _, u in defer_in])
+            sc = agg.scales(norms)
+            w_of = dict(zip([pos for pos, _ in accepted], sc.tolist()))
+            w_defer = sc[len(accepted):].tolist()
+        else:
+            w_of = {pos: 1.0 for pos, _ in accepted}
+            w_defer = [1.0] * len(defer_in)
+        by_pos = dict(accepted)
+        carry = agg.init(self.n_params)
+        cnt = 0
+        for pos_c, slots, c, _ups in chunks:
+            dense = np.zeros((c, self.n_params), np.float32)
+            w = np.zeros(c, np.float32)
+            for row_i, pos in zip(slots, pos_c):
+                u = by_pos.get(int(pos))
+                if u is None:
+                    continue
+                dense[row_i, u.indices] = u.values
+                w[row_i] = w_of[int(pos)]
+                cnt += 1
+            carry = agg.update(carry, dense, w)
+        if defer_in:
+            # deferred arrivals fold after the live chunks, rung-padded
+            d = len(defer_in)
+            d_pad = 1 << (d - 1).bit_length()
+            dense = np.zeros((d_pad, self.n_params), np.float32)
+            w = np.zeros(d_pad, np.float32)
+            for i, (_cl, u) in enumerate(defer_in):
+                dense[i, u.indices] = u.values
+                w[i] = w_defer[i]
+            carry = agg.update(carry, dense, w)
+            cnt += d
+        new_global = agg.finalize(global_f, carry, cnt)
+
+        self.fault_log.append({
+            "round": t, "parts": parts.copy(),
+            "status": fp.status.copy(), "byz": fp.byz.copy(),
+            "corrupt_first": fp.corrupt_first.copy(),
+            "n_aggregated": len(accepted), "n_deferred_in": len(defer_in),
+            "n_deferred_out": len(deferred_next),
+            "n_crc_dropped": n_crc_drop, "wire_bytes": wire_bytes})
+        # modeled upload traffic: only bytes that hit the wire count, and
+        # a CRC retry pays twice
+        up_eff = (ub_o * fp.uploads_sent().astype(np.float32)
+                  * (1.0 + resent.astype(np.float32)))
+        return new_global, db_o, up_eff, gn_o, wire_bytes
 
     def _init_global(self) -> torch.Tensor:
         """Fresh [n_params] f32 global vector on the device (`flat0` itself
@@ -429,13 +728,20 @@ class Simulator:
         cfg = self.cfg
         q_bits = float(self.model_bits)
         hist = History()
+        ccfg = cfg.caesar
         global_f = self._init_global()
         store = self.store = self._make_store()
-        cum_time, cum_bits, waiting_sum = 0.0, 0.0, 0.0
+        cum_time, cum_bits, waiting_sum, wire_bits_cum = 0.0, 0.0, 0.0, 0.0
         # one dict per round: participants, plan and payload bits (host
         # arrays) — the record parity checks compare across devices and
         # against the reference
         self.round_log = []
+        self._deferred = []
+        self.fault_log = []
+        self.avail_log = []
+        self._last_part = np.zeros(cfg.n_clients, np.int64)
+        self._transport = (W.make_transport(cfg.wire) if self._wire_on
+                           else None)
         # double-buffered producer: the worker fills round t+1's package
         # into the OFF buffer slot while the device runs round t
         pool = (ThreadPoolExecutor(max_workers=1) if cfg.pipelined
@@ -458,22 +764,52 @@ class Simulator:
                     pkg = prefetch(t)
                 parts = pkg.parts
                 mu, bw_d, bw_u = pkg.mu, pkg.bw_d, pkg.bw_u
+                # participant staleness at draw time (δ = t − last recorded
+                # participation; δ = t for first-timers), logged with the
+                # availability counts; main thread only, in round order
+                self.avail_log.append({
+                    "round": t, "n_eligible": int(pkg.n_eligible),
+                    "n_forced": int(pkg.n_forced),
+                    "staleness": AV.staleness_stats(
+                        t - self._last_part[parts])})
+                rec = (parts if pkg.fplan is None
+                       else parts[pkg.fplan.record])
+                self._last_part[rec] = t
                 lr = SGD.lr_at(cfg.sgd, torch.tensor(float(t - 1)))
                 if pkg.plan is not None:
                     theta_d, theta_u, batch, taus = pkg.plan
-                    tiers = pkg.tiers
-                else:   # a policy plans here, after round t-1's observe
+                else:   # planned here, after round t-1's observe
                     theta_d, theta_u, batch, taus = self.planner.plan(
                         t, parts, mu, bw_d, bw_u)
-                    tiers = self._tiers_from_cap(pkg.xs, pkg.ys, batch, taus)
+                    # masked Caesar: the participation record advances
+                    # right after planning (a no-op for the policies)
+                    self.planner.advance(t, parts)
                 self.round_log.append({
                     "round": t, "parts": parts.copy(), "theta_d": theta_d,
                     "theta_u": theta_u, "batch": batch, "taus": taus})
                 td32 = np.asarray(theta_d, np.float32)
                 tu32 = np.asarray(theta_u, np.float32)
-                (global_f, down_bits, up_bits,
-                 gnorms) = self.executor.step_ragged(
-                    global_f, store, parts, tiers, lr, td32, tu32, t=t)
+                wire_bytes = 0
+                if cfg.ragged:
+                    tiers = (pkg.tiers if pkg.tiers is not None else
+                             self._tiers_from_cap(pkg.xs, pkg.ys, batch,
+                                                  taus))
+                    if self._wire_on:
+                        (global_f, down_bits, up_bits, gnorms,
+                         wire_bytes) = self._wire_round(
+                            global_f, store, pkg, tiers, lr, td32, tu32, t)
+                    else:
+                        (global_f, down_bits, up_bits,
+                         gnorms) = self.executor.step_ragged(
+                            global_f, store, parts, tiers, lr, td32, tu32,
+                            t=t)
+                else:
+                    ws, ims = self._batch_masks(batch, taus, ccfg.b_max,
+                                                ccfg.tau)
+                    (global_f, down_bits, up_bits,
+                     gnorms) = self.executor.step(
+                        global_f, store, parts, pkg.xs, pkg.ys, ws, ims, lr,
+                        td32, tu32, t=t)
                 self.planner.observe(t, parts, gnorms)
 
                 # --- accounting: payload bits on the wire. step_ragged
@@ -491,10 +827,15 @@ class Simulator:
                     bw_d[parts], bw_u[parts],
                     np.asarray(taus, np.float64),
                     np.asarray(batch, np.float64), mu[parts])
+                # under the wire engine a straggler deadline closes the
+                # round early; with no deadline (inf) this is the barrier
                 close = float(times.max())
+                if pkg.fplan is not None:
+                    close = min(close, float(pkg.fplan.deadline))
                 cum_time += close
                 waiting = float(np.mean(np.maximum(close - times, 0.0)))
                 waiting_sum += waiting
+                wire_bits_cum += wire_bytes * 8.0
                 hist.waiting_per_round.append(waiting)
                 hist.wall_per_round.append(time.perf_counter() - wall0)
                 if t == 1:
@@ -509,6 +850,8 @@ class Simulator:
                     hist.traffic_bits.append(cum_bits)
                     hist.accuracy.append(acc)
                     hist.waiting.append(waiting_sum / t)
+                    if self._wire_on:
+                        hist.wire_bits.append(wire_bits_cum)
                     warm = hist.wall_per_round[1:] or hist.wall_per_round
                     hist.wall.append(float(np.mean(warm)))
                     log(f"[{cfg.scheme}/{cfg.dataset}] round {t:4d} "
@@ -518,8 +861,13 @@ class Simulator:
         finally:
             if pool:
                 pool.shutdown(wait=True, cancel_futures=True)
+            if self._transport is not None:
+                self._transport.close()
+                self._transport = None
         self.global_flat = global_f          # final flat model (device)
+        self.ef_flat = store.ef_pool         # [capacity, ef_width] residuals
         self._acct = (cum_time, cum_bits, waiting_sum)
+        self._wire_bits_cum = wire_bits_cum
         return hist
 
     def state_dict(self) -> dict:

@@ -1,11 +1,14 @@
 """Execution layer of the Track-A round engine — the port of
-``repro.fl.executor``'s plan-shaped (ragged), unsharded path, for every
-scheme.
+``repro.fl.executor``'s unsharded paths, for every scheme.
 
-The host groups the round's participants by quantized (b, τ) tier
-(`TierGroup`); `RoundExecutor.step_ragged` walks the tiers in order and,
-for each **tier chunk** (≤ ``chunk`` participants, padded to a rung of the
-chunk ladder), runs the per-participant round batched over the chunk:
+**Ragged** (default): the host groups the round's participants by
+quantized (b, τ) tier (`TierGroup`); `step_ragged` walks the tiers in
+order and, for each **tier chunk** (≤ ``chunk`` participants, padded to a
+rung of the chunk ladder), runs the per-participant round batched over the
+chunk. **Masked** (``SimConfig.ragged=False``): `step` runs every
+participant at the cap shape [τ, b_max] with zero-weight masks, over
+fixed chunks of `chunk_layout`; the last chunk is padded to the chunk size.
+Both run the same chunk step, `_tier_chunk_defer`:
 
 1. download threshold: an O(1) lookup per participant in the cdf of ONE
    histogram of the global model per round (`_hist`);
@@ -17,22 +20,33 @@ chunk ladder), runs the per-participant round batched over the chunk:
 4. τ masked SGD steps on the chunk's stacked models (grouped conv + bmm,
    one backward of the summed per-participant losses);
 5. upload threshold (one histogram per participant, one launch), then
-   top-k sparsify of the upload delta — or, for ProWD (``quantize``), a
-   second hybrid compress, of the deltas row by row (x per row, one
-   launch), dequantized to sign·mean on the compressed slots.
+   top-k sparsify of the upload target — or, for ProWD (``quantize``), a
+   second hybrid compress, of the targets row by row (x per row, one
+   launch), dequantized to sign·mean on the compressed slots. With error
+   feedback (``CaesarConfig.use_error_feedback``) the target is the delta
+   plus the participant's residual row, and what the compressor dropped
+   (target − upload) becomes the new residual.
 
 So a chunk step launches one histogram and one compress kernel for every
 scheme, plus one recover for Caesar and one more compress for ProWD; each
-round adds the global model's histogram.
+round adds the global model's histogram (`kernel_launches`).
 
 The uploads fold into the round's sum in fixed order (`weighted_row_fold`),
 the participants' new rows are written back into the pool in place
 (``index_copy_`` over the valid rows only), and `_finalize` applies the
 mean. Padded rows of a chunk gather a clamped (valid) pool row, train with
-zero masks and are never scattered or folded with non-zero weight.
+zero masks and are never scattered or folded with non-zero weight. The
+pool may be stored in bf16 (``SimConfig.buffer_dtype``): gathers upcast
+to f32, scatters downcast through `core.compression.stochastic_round_cast`
+(``SimConfig.stochastic_round``, default on) seeded per (round, chunk) from
+the SeedSequence (seed, 3, t, i) — the reference's `_round_seed` — else
+round to nearest even. The error-feedback pool stays f32.
 
-Masked (uniform-cap) execution, error feedback, bf16 pools and sharding
-are not ported yet (the simulator raises for them).
+`step_ragged_deferred` is the wire boundary's variant: the same chunk
+stream, but each chunk's raw uploads come back for the server to decode
+and aggregate (`repro_torch.fl.robust`), and a row-adoption mask keeps the
+pre-round pool and residual rows of participants the server never
+aggregates. Sharding is not ported yet (the simulator raises for it).
 """
 from __future__ import annotations
 
@@ -44,7 +58,13 @@ import torch.nn.functional as F
 
 from repro_torch.core import batchsize as BS
 from repro_torch.core import compression as C
+from repro_torch.core import rng as RNG
 from repro_torch.fl.robust import weighted_row_fold
+
+BUFFER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# extra f32 [chunk, n_params] arrays the EF carry keeps live in the chunk
+# step (gathered residual rows + new ones) — the reference's auto_chunk input
+EF_EXTRA_ARRAYS = 2.0
 
 
 @dataclasses.dataclass
@@ -65,28 +85,39 @@ class TierGroup:
 
 class RoundExecutor:
     """The flat-parameter round step over a ClientStateStore pool, batched
-    over tier chunks. ``apply_fn(params, x)`` maps {name: [c, *shape]}
-    parameter views and [c, B, ...] inputs to [c, B, n_classes] logits."""
+    over chunks. ``apply_fn(params, x)`` maps {name: [c, *shape]} parameter
+    views and [c, B, ...] inputs to [c, B, n_classes] logits. ``use_ef``
+    turns on the error-feedback residual (``ef_width = n_params``, else 0)."""
 
     def __init__(self, cfg, apply_fn, spec: C.FlatSpec, n_part: int,
-                 device, quantize: bool = False):
+                 device, quantize: bool = False, use_ef: bool = False):
         self.cfg = cfg
         self.apply_fn = apply_fn
         self.spec = spec
         self.device = torch.device(device)
         # scheme switches, fixed for the simulation: Fig.-3 recovery of the
-        # download (Caesar only) and ProWD's quantized upload
+        # download (Caesar only), ProWD's quantized upload, error feedback
         self.use_recovery = cfg.scheme == "caesar"
         self.quantize = bool(quantize)
+        self.use_ef = bool(use_ef)
+        self.ef_width = spec.n_params if self.use_ef else 0
+        if cfg.buffer_dtype not in BUFFER_DTYPES:
+            raise ValueError(f"unknown buffer_dtype {cfg.buffer_dtype!r}; "
+                             f"want one of {tuple(BUFFER_DTYPES)}")
+        self.buf_dtype = BUFFER_DTYPES[cfg.buffer_dtype]
+        self.use_sr = (self.buf_dtype == torch.bfloat16
+                       and cfg.stochastic_round)
         chunk_size = cfg.chunk_size
         if chunk_size is None:
-            chunk_size = C.auto_chunk(spec.n_params, n_part)
+            chunk_size = C.auto_chunk(
+                spec.n_params, n_part, cfg.chunk_budget_mb,
+                extra_arrays=EF_EXTRA_ARRAYS if self.use_ef else 0.0)
         self.chunk = C.chunk_layout(n_part, chunk_size)[0]
         self.b_cap, self.tau_cap = cfg.caesar.b_max, cfg.caesar.tau
         self.b_min = cfg.caesar.b_min
         # telemetry: cumulative per-tier participant counts, the distinct
         # tier-chunk shapes run, plan-shaped vs cap work, and the number of
-        # tier-chunk steps and rounds (`kernel_launches` turns them into the
+        # chunk steps and rounds (`kernel_launches` turns them into the
         # launches of each kernel)
         self.tier_occupancy: dict = {}
         self._shapes_seen: set = set()
@@ -173,10 +204,12 @@ class RoundExecutor:
             p = p - (lr * ims[:, k])[:, None] * g
         return p
 
-    def participant_round(self, global_f, g_cdf, g_max, local, xs, ys, ws,
-                          ims, lr, theta_d, theta_u):
-        """One round for each row of a chunk, on flat [c, n_params] rows.
-        Returns (uploads, new rows, down bits, up bits, upload-delta norms)."""
+    def participant_round(self, global_f, g_cdf, g_max, local, ef_row, xs,
+                          ys, ws, ims, lr, theta_d, theta_u):
+        """One round for each row of a chunk, on flat [c, n_params] rows
+        (``ef_row`` is the residual rows, or None without error feedback).
+        Returns (uploads, new rows, new residual rows or None, down bits,
+        up bits, upload-delta norms)."""
         n_params = self.spec.n_params
         # download: per-participant threshold from the shared global cdf
         thr_d = C.threshold_from_cdf(g_cdf, g_max, theta_d)
@@ -192,29 +225,61 @@ class RoundExecutor:
         w_fin = self._local_train(w_init, xs, ys, ws, ims, lr)
         delta = w_init - w_fin
         gnorm = torch.linalg.vector_norm(delta, dim=-1)
-        thr_u = C.fused_threshold(delta, theta_u)
+        # upload (EF: compress the residual-corrected delta, keep what the
+        # compressor dropped as the participant's new residual)
+        target = delta + ef_row if self.use_ef else delta
+        thr_u = C.fused_threshold(target, theta_u)
         if self.quantize:   # ProWD: 1-bit compressed slots at sign·mean
-            k2, s2, c2, ss2, _ = C.fused_compress(delta, thr_u)
+            k2, s2, c2, ss2, _ = C.fused_compress(target, thr_u)
             mean2 = ss2 / torch.clamp(c2, min=1).to(torch.float32)
             up = torch.where(s2 != 0, s2.to(torch.float32) * mean2[:, None],
                              k2)
             up_bits = C.hybrid_payload_bits(n_params, c2)
         else:               # top-k sparsification
-            up, up_bits = C.topk_sparsify_at(delta, thr_u)
-        return up, w_fin, down_bits, up_bits, gnorm
+            up, up_bits = C.topk_sparsify_at(target, thr_u)
+        new_ef = target - up if self.use_ef else None
+        return up, w_fin, new_ef, down_bits, up_bits, gnorm
+
+    # -- the bf16 pool's stochastic-rounding scatter -------------------------
+
+    def _round_seed(self, t: int, i: int = 0) -> int:
+        """Per-(round, chunk) SR seed: the SeedSequence (seed, 3, t, i) —
+        kinds 0/1 are the capability streams, 2 the round's sampling."""
+        return int(RNG.sequence(self.cfg.seed, RNG.KIND_SR_SCATTER, t, i)
+                   .generate_state(1)[0])
+
+    def _store_cast(self, rows: torch.Tensor, seed: int) -> torch.Tensor:
+        """f32 rows → the pool's dtype: stochastic rounding when enabled,
+        the identity for f32 pools, round to nearest even otherwise."""
+        if self.use_sr:
+            return C.stochastic_round_cast(rows, self.buf_dtype, seed)
+        return rows.to(self.buf_dtype)
 
     def _tier_chunk_defer(self, store, global_f, g_cdf, g_max, slots, n_valid,
-                          xs, ys, ws, ims, lr, theta_d, theta_u):
-        """Gather the chunk's rows, run the round, write the valid rows back
-        in place. Returns the raw uploads [c, n_params] for the fold."""
-        pool = store.pool
+                          xs, ys, ws, ims, lr, theta_d, theta_u, wmask=None,
+                          seed: int = 0):
+        """Gather the chunk's rows (upcast to f32), run the round, write the
+        first ``n_valid`` rows back in place (downcast to the pool's dtype).
+        ``wmask`` [c] (device) is the row-adoption mask: rows where it is 0
+        rewrite their gathered pool and residual values (an SR fixed point,
+        so unchanged). Returns the raw uploads [c, n_params] for the fold."""
         idx = torch.from_numpy(np.minimum(slots, store.capacity - 1)
                                .astype(np.int64)).to(self.device)
-        local = pool.index_select(0, idx)
-        ups, new_rows, db, ub, gn = self.participant_round(
-            global_f, g_cdf, g_max, local, xs, ys, ws, ims, lr, theta_d,
+        local = store.pool.index_select(0, idx).to(torch.float32)
+        ef = store.ef_pool.index_select(0, idx) if self.use_ef else None
+        ups, new_rows, new_ef, db, ub, gn = self.participant_round(
+            global_f, g_cdf, g_max, local, ef, xs, ys, ws, ims, lr, theta_d,
             theta_u)
-        pool.index_copy_(0, idx[:n_valid], new_rows[:n_valid])
+        if wmask is not None:
+            sel = wmask[:, None] > 0
+            new_rows = torch.where(sel, new_rows, local)
+            if self.use_ef:
+                new_ef = torch.where(sel, new_ef, ef)
+        keep = idx[:n_valid]
+        store.pool.index_copy_(0, keep,
+                               self._store_cast(new_rows[:n_valid], seed))
+        if self.use_ef:
+            store.ef_pool.index_copy_(0, keep, new_ef[:n_valid])
         return ups, db, ub, gn
 
     def _hist(self, global_f):
@@ -235,41 +300,54 @@ class RoundExecutor:
         """Yield (positions, n_valid, host-input dict) per tier chunk:
         zero-copy views over the (already rung-padded) tier arrays; padding
         rows carry the out-of-range slot ``pad_idx`` and zero ratios."""
-        pad = np.int32(pad_idx)
         g = len(tg.pos)
         for s, c in tg.slices:
             pos_c = tg.pos[s:min(s + c, g)]
-            v = len(pos_c)
-            pc = np.full(c, pad, np.int32)
-            pc[:v] = slots32[pos_c]
-            pm = np.zeros(c, np.float32)
-            pm[:v] = 1.0
-            td = np.zeros(c, np.float32)
-            td[:v] = theta_d[pos_c]
-            tu = np.zeros(c, np.float32)
-            tu[:v] = theta_u[pos_c]
-            yield pos_c, v, dict(
-                parts=pc, pmask=pm, xs=tg.xs[s:s + c], ys=tg.ys[s:s + c],
-                ws=tg.ws[s:s + c], ims=tg.ims[s:s + c], td=td, tu=tu)
+            yield pos_c, len(pos_c), self._chunk_inputs(
+                pos_c, c, slots32, theta_d, theta_u, pad_idx,
+                tg.xs[s:s + c], tg.ys[s:s + c], tg.ws[s:s + c],
+                tg.ims[s:s + c])
+
+    @staticmethod
+    def _chunk_inputs(pos_c, c, slots32, theta_d, theta_u, pad_idx, xs, ys,
+                      ws, ims) -> dict:
+        """One chunk's host inputs, its per-participant vectors padded to
+        ``c`` rows (slot ``pad_idx``, zero mask and ratios)."""
+        v = len(pos_c)
+        pc = np.full(c, np.int32(pad_idx), np.int32)
+        pc[:v] = slots32[pos_c]
+        pm = np.zeros(c, np.float32)
+        pm[:v] = 1.0
+        td = np.zeros(c, np.float32)
+        td[:v] = theta_d[pos_c]
+        tu = np.zeros(c, np.float32)
+        tu[:v] = theta_u[pos_c]
+        return dict(parts=pc, pmask=pm, xs=xs, ys=ys, ws=ws, ims=ims, td=td,
+                    tu=tu)
 
     def _dev(self, a: np.ndarray, dtype=None) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
         return t if dtype is None else t.to(dtype)
 
-    def step_ragged(self, global_f, store, parts: np.ndarray, tiers: list,
-                    lr, theta_d, theta_u, t: int = 0):
-        """Run one PLAN-SHAPED round: one batched step per tier chunk.
-        Returns (new global [n_params], down_bits [P], up_bits [P],
-        gnorms [P]) with per-participant outputs as numpy arrays in the
-        caller's ``parts`` order; the updated rows land in ``store.pool``."""
-        n = len(parts)
-        n_params = self.spec.n_params
-        slots32 = store.prepare(np.asarray(parts), t)
+    def _run_chunk(self, store, global_f, g_cdf, g_max, a: dict, v: int, lr,
+                   seed_i: int, t: int, wmask=None):
+        """One chunk step from host inputs ``a`` (see `_chunk_inputs`)."""
+        seed = self._round_seed(t, seed_i) if self.use_sr else 0
+        ups, db, ub, gn = self._tier_chunk_defer(
+            store, global_f, g_cdf, g_max, a["parts"], v,
+            self._dev(a["xs"]), self._dev(a["ys"], torch.int64),
+            self._dev(a["ws"]), self._dev(a["ims"]), lr,
+            self._dev(a["td"]), self._dev(a["tu"]),
+            wmask=None if wmask is None else self._dev(wmask), seed=seed)
+        self.chunk_calls += 1
+        return ups, torch.stack([db, ub, gn])
+
+    def _tier_stream(self, global_f, store, slots32, tiers: list, lr,
+                     theta_d, theta_u, t: int, wm=None):
+        """Run every tier chunk in processing order; yield (positions,
+        n_valid, chunk rows, pmask, uploads, [3, c] per-row outputs)."""
         g_cdf, g_max = self._hist(global_f)
-        up_sum = torch.zeros(n_params, dtype=torch.float32,
-                             device=self.device)
-        lr = lr.to(self.device)
-        pend = []
+        call_i = 0
         for tg in tiers:
             key = (int(tg.b), int(tg.tau))
             self.tier_occupancy[key] = (self.tier_occupancy.get(key, 0)
@@ -279,28 +357,113 @@ class RoundExecutor:
                 c = len(a["parts"])
                 self.work_ragged += c * tg.tau * tg.b
                 self._shapes_seen.add((c, int(tg.tau), int(tg.b)))
-                pmask = self._dev(a["pmask"])
-                ups, db, ub, gn = self._tier_chunk_defer(
-                    store, global_f, g_cdf, g_max, a["parts"], v,
-                    self._dev(a["xs"]), self._dev(a["ys"], torch.int64),
-                    self._dev(a["ws"]), self._dev(a["ims"]), lr,
-                    self._dev(a["td"]), self._dev(a["tu"]))
-                weighted_row_fold(up_sum, ups, pmask)
-                self.chunk_calls += 1
-                pend.append((pos_c, v, torch.stack([db, ub, gn])))
+                wm_c = None
+                if wm is not None:
+                    wm_c = np.zeros(c, np.float32)
+                    wm_c[:v] = wm[pos_c]
+                ups, outs = self._run_chunk(store, global_f, g_cdf, g_max, a,
+                                            v, lr, call_i, t, wm_c)
+                call_i += 1
+                yield pos_c, v, c, a["pmask"], ups, outs
+
+    @staticmethod
+    def _readback(n: int, pend: list):
+        """The per-participant outputs in parts order, as numpy: one copy of
+        every chunk's [3, c] outputs — after every chunk step has been
+        queued, so it drains the device queue (the round's one host sync)."""
+        outs = torch.cat([o for _, _, o in pend], dim=1).cpu().numpy()
+        res = np.empty((3, n), np.float32)
+        col = 0
+        for pos_c, v, o in pend:
+            res[:, pos_c] = outs[:, col:col + v]
+            col += o.shape[1]
+        return res[0], res[1], res[2]
+
+    def step_ragged(self, global_f, store, parts: np.ndarray, tiers: list,
+                    lr, theta_d, theta_u, t: int = 0):
+        """Run one PLAN-SHAPED round: one batched step per tier chunk.
+        Returns (new global [n_params], down_bits [P], up_bits [P],
+        gnorms [P]) with per-participant outputs as numpy arrays in the
+        caller's ``parts`` order; the updated rows land in ``store.pool``."""
+        n = len(parts)
+        slots32 = store.prepare(np.asarray(parts), t)
+        up_sum = torch.zeros(self.spec.n_params, dtype=torch.float32,
+                             device=self.device)
+        lr = lr.to(self.device)
+        pend = []
+        for pos_c, v, _c, pm, ups, outs in self._tier_stream(
+                global_f, store, slots32, tiers, lr, theta_d, theta_u, t):
+            weighted_row_fold(up_sum, ups, self._dev(pm))
+            pend.append((pos_c, v, outs))
         self.work_cap += n * self.tau_cap * self.b_cap
         self.rounds += 1
         new_global = self._finalize(global_f, up_sum, n)
-        # end-of-round readback: every chunk step has been queued, so this
-        # one copy drains the device queue — the round's single host sync
-        outs = torch.cat([o for _, _, o in pend], dim=1).cpu().numpy()
-        db_o = np.empty(n, np.float32)
-        ub_o = np.empty(n, np.float32)
-        gn_o = np.empty(n, np.float32)
-        col = 0
-        for (pos_c, v, o) in pend:
-            db_o[pos_c] = outs[0, col:col + v]
-            ub_o[pos_c] = outs[1, col:col + v]
-            gn_o[pos_c] = outs[2, col:col + v]
-            col += o.shape[1]
-        return new_global, db_o, ub_o, gn_o
+        return (new_global, *self._readback(n, pend))
+
+    def step_ragged_deferred(self, global_f, store, parts: np.ndarray,
+                             tiers: list, lr, theta_d, theta_u, t: int = 0,
+                             wmask=None):
+        """The wire boundary's `step_ragged`: the identical tier-chunk
+        stream, but aggregation is DEFERRED — each chunk's raw uploads come
+        back [c, n_params] (on the device) for the caller to serialize,
+        transport and fold server-side (`repro_torch.fl.robust` replays the
+        same fold, so a zero-fault round is bit-identical).
+
+        ``wmask`` [P] bool (parts order) gates row adoption: participants
+        whose upload the server never aggregates (dropouts, discarded
+        stragglers, twice-corrupted payloads) keep their pre-round pool and
+        residual rows. Returns (chunks, down_bits, up_bits, gnorms) with
+        ``chunks`` the ordered list of (positions, valid rows, c, uploads)
+        the server replays."""
+        n = len(parts)
+        wm = (np.ones(n, np.float32) if wmask is None
+              else np.asarray(wmask, np.float32))
+        slots32 = store.prepare(np.asarray(parts), t)
+        lr = lr.to(self.device)
+        chunks, pend = [], []
+        for pos_c, v, c, _pm, ups, outs in self._tier_stream(
+                global_f, store, slots32, tiers, lr, theta_d, theta_u, t,
+                wm=wm):
+            chunks.append((pos_c, np.arange(v), c, ups))
+            pend.append((pos_c, v, outs))
+        self.work_cap += n * self.tau_cap * self.b_cap
+        self.rounds += 1
+        return (chunks, *self._readback(n, pend))
+
+    def step(self, global_f, store, parts: np.ndarray, xs, ys, ws, ims, lr,
+             theta_d, theta_u, t: int = 0):
+        """Run one MASKED round at the [τ, b_max] cap over fixed chunks
+        (`chunk_layout`; the last one padded to the chunk size). Same
+        return contract as `step_ragged`."""
+        n = len(parts)
+        slots32 = store.prepare(np.asarray(parts), t)
+        g_cdf, g_max = self._hist(global_f)
+        up_sum = torch.zeros(self.spec.n_params, dtype=torch.float32,
+                             device=self.device)
+        lr = lr.to(self.device)
+        chunk, p_pad, n_chunks = C.chunk_layout(n, self.chunk)
+        pend = []
+        for i in range(n_chunks):
+            s = i * chunk
+            pos_c = np.arange(s, min(s + chunk, n))
+            arrs = [_pad_rows(a[s:s + chunk], chunk) for a in (xs, ys, ws,
+                                                               ims)]
+            a = self._chunk_inputs(pos_c, chunk, slots32, theta_d, theta_u,
+                                   store.capacity, *arrs)
+            self._shapes_seen.add((chunk, self.tau_cap, self.b_cap))
+            ups, outs = self._run_chunk(store, global_f, g_cdf, g_max, a,
+                                        len(pos_c), lr, i, t)
+            weighted_row_fold(up_sum, ups, self._dev(a["pmask"]))
+            pend.append((pos_c, len(pos_c), outs))
+        self.rounds += 1
+        new_global = self._finalize(global_f, up_sum, n)
+        return (new_global, *self._readback(n, pend))
+
+
+def _pad_rows(a: np.ndarray, rows: int) -> np.ndarray:
+    """``a`` with zero rows appended up to ``rows`` (a view when full)."""
+    if len(a) == rows:
+        return a
+    out = np.zeros((rows,) + a.shape[1:], a.dtype)
+    out[:len(a)] = a
+    return out

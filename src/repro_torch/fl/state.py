@@ -40,7 +40,8 @@ def _pow2(n: int) -> int:
 class ClientStateStore:
     def __init__(self, n_clients: int, n_params: int,
                  init_row: torch.Tensor, *, capacity: int | None = None,
-                 cohort: int = 1, device):
+                 cohort: int = 1, device, ef_width: int = 0,
+                 dtype: torch.dtype = torch.float32):
         if capacity not in (None, 0):
             raise NotImplementedError(
                 "state_capacity > 0 (capped pool with staleness-tiered "
@@ -48,7 +49,12 @@ class ClientStateStore:
         self.n_clients = int(n_clients)
         self.n_params = int(n_params)
         self.device = torch.device(device)
-        self.init_row = init_row.to(self.device, torch.float32).reshape(-1)
+        self.ef_width = int(ef_width)
+        self.dtype = dtype
+        # the initial model AT the storage dtype (round to nearest even, as
+        # the reference pre-quantizes it), so activation writes are exact
+        self.init_row = (init_row.to(self.device, torch.float32).reshape(-1)
+                         .to(dtype).to(torch.float32))
         if self.init_row.shape != (self.n_params,):
             raise ValueError("init_row must be [n_params]")
         self.dense = capacity == 0
@@ -59,17 +65,19 @@ class ClientStateStore:
         self.last_used = np.zeros(self.n_clients, np.int64)
         if self.dense:
             self._capacity = self.n_clients
-            self.pool = self.init_row.expand(self.n_clients,
-                                             self.n_params).clone()
+            self.pool = self.init_row.to(dtype).expand(
+                self.n_clients, self.n_params).clone()
             self.slot_of = np.arange(self.n_clients, dtype=np.int64)
             self.client_of = np.arange(self.n_clients, dtype=np.int64)
         else:
             self._capacity = min(self.n_clients,
                                  _pow2(GROW_COHORT_FACTOR * self.cohort))
             self.pool = torch.zeros((self._capacity, self.n_params),
-                                    dtype=torch.float32, device=self.device)
+                                    dtype=dtype, device=self.device)
             self.slot_of = np.full(self.n_clients, -1, np.int64)
             self.client_of = np.full(self._capacity, -1, np.int64)
+        self.ef_pool = torch.zeros((self._capacity, self.ef_width),
+                                   dtype=torch.float32, device=self.device)
 
     @property
     def capacity(self) -> int:
@@ -104,6 +112,9 @@ class ClientStateStore:
         extra = torch.zeros((new_cap - self._capacity, self.n_params),
                             dtype=self.pool.dtype, device=self.device)
         self.pool = torch.cat([self.pool, extra])
+        self.ef_pool = torch.cat([self.ef_pool, torch.zeros(
+            (new_cap - self._capacity, self.ef_width), dtype=torch.float32,
+            device=self.device)])
         grown = np.full(new_cap, -1, np.int64)
         grown[:self._capacity] = self.client_of
         self.client_of = grown
@@ -111,15 +122,18 @@ class ClientStateStore:
         self.n_grows += 1
 
     def _restore(self, clients: np.ndarray, slots: np.ndarray):
-        """First-time residents start from the initial-model row."""
+        """First-time residents start from the initial-model row (their
+        residual row is still the zero it was made with: without eviction
+        no slot is reused)."""
         idx = torch.from_numpy(slots.astype(np.int64)).to(self.device)
-        rows = self.init_row.expand(len(slots), self.n_params)
+        rows = self.init_row.to(self.dtype).expand(len(slots), self.n_params)
         self.pool.index_copy_(0, idx, rows)
         self.n_restore_fresh += len(clients)
         self.slot_of[clients] = slots
         self.client_of[slots] = clients
 
     def telemetry(self) -> dict:
+        itemsize = self.pool.element_size()
         return {
             "capacity": self.capacity,
             "resident": int((self.slot_of >= 0).sum()),
@@ -127,6 +141,8 @@ class ClientStateStore:
             "registered": self.n_clients,
             "grows": self.n_grows,
             "restores": {"fresh": self.n_restore_fresh},
-            "pool_mb": self.capacity * self.n_params * 4 / 2**20,
-            "dense_mb": self.n_clients * self.n_params * 4 / 2**20,
+            "pool_mb": self.capacity * (self.n_params * itemsize
+                                        + self.ef_width * 4) / 2**20,
+            "dense_mb": self.n_clients * (self.n_params * itemsize
+                                          + self.ef_width * 4) / 2**20,
         }

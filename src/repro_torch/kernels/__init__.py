@@ -9,9 +9,10 @@
 Each wrapper dispatches on its input's device (CUDA → kernel, CPU → twin
 in `ref`) and counts its kernel launches in a plain integer attribute
 ``launches``; `launch_counts` / `reset_launch_counts` read and zero them.
-The compress and recover wrappers also count their launches by batch rows
-(``launches_by_rows``, read by `launch_counts_by_rows`): the main path
-calls them once per tier chunk, at chunk sizes 1 to 25.
+The histogram, compress and recover wrappers also count their launches by
+batch rows (``launches_by_rows``, read by `launch_counts_by_rows`): the
+round path calls them once per tier chunk, at the chunk sizes of its
+rung ladder (and the histogram once per round at one row).
 Kernels are built from ``csrc/`` at first use (see `build`).
 """
 from __future__ import annotations

@@ -91,7 +91,10 @@ def magnitude_histogram(x: torch.Tensor, max_abs: torch.Tensor
                   rows, n, per_block, blocks, stream)
     build.check_launch(code, "magnitude_histogram")
     magnitude_histogram.launches += 1
+    by_rows = magnitude_histogram.launches_by_rows
+    by_rows[rows] = by_rows.get(rows, 0) + 1
     return hist
 
 
 magnitude_histogram.launches = 0
+magnitude_histogram.launches_by_rows = {}

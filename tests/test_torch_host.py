@@ -26,6 +26,7 @@ from repro_torch.core import rng as T_RNG  # noqa: E402
 from repro_torch.data import partition as T_PART  # noqa: E402
 from repro_torch.data import synthetic as T_SYN  # noqa: E402
 from repro_torch.fl import capability as T_CAP  # noqa: E402
+from repro_torch.fl.availability import AvailabilityConfig  # noqa: E402
 from repro_torch.fl import simulation as T_SIM  # noqa: E402
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -84,7 +85,11 @@ def test_capability_snapshots_byte_equal(seed):
                                     "repro_torch.configs",
                                     "repro_torch.kernels.flash_attention",
                                     "repro_torch.fl.baselines",
-                                    "repro_torch.models.paper_models"])
+                                    "repro_torch.models.paper_models",
+                                    "repro_torch.fl.wire",
+                                    "repro_torch.fl.faults",
+                                    "repro_torch.fl.availability",
+                                    "repro_torch.fl.robust"])
 def test_port_imports_neither_jax_nor_reference(module):
     code = (f"import sys; import {module}; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
@@ -112,19 +117,33 @@ _FAST = dict(dataset="har", n_clients=12, participation=0.25, rounds=1,
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(ragged=False), "item 9"),
-    (dict(buffer_dtype="bfloat16"), "item 9"),
-    (dict(caesar=T_CA.CaesarConfig(use_error_feedback=True)), "item 9"),
     (dict(state_capacity=8), "item 10"),
     (dict(sharded=True), "item 13"),
     (dict(multi_host=True), "item 13"),
-    (dict(wire="loopback"), "item 11"),
-    (dict(availability="diurnal"), "item 11"),
 ])
 def test_out_of_slice_configs_raise(override, item):
     cfg = dataclasses.replace(T_SIM.SimConfig(**_FAST), **override)
     with pytest.raises(NotImplementedError, match=item):
         T_SIM.Simulator(cfg)
+
+
+@pytest.mark.parametrize("override", [
+    dict(ragged=False),
+    dict(buffer_dtype="bfloat16"),
+    dict(caesar=T_CA.CaesarConfig(tau=2, b_max=8, use_error_feedback=True)),
+    dict(wire="loopback"),
+    dict(availability=AvailabilityConfig(kind="diurnal")),
+], ids=["masked", "bf16", "ef", "loopback", "diurnal"])
+def test_ported_modes_run_one_round(override):
+    """The modes of ROADMAP items 9 and 11 (which raised before they were
+    ported) build and run a round on the CPU."""
+    cfg = dataclasses.replace(T_SIM.SimConfig(**_FAST),
+                              caesar=T_CA.CaesarConfig(tau=2, b_max=8))
+    cfg = dataclasses.replace(cfg, **override)
+    sim = T_SIM.Simulator(cfg)
+    hist = sim.run()
+    assert len(hist.accuracy) == 1
+    assert bool(torch.isfinite(sim.global_flat).all())
 
 
 def test_state_dict_raises():

@@ -307,17 +307,18 @@ def test_compress_plan_covers_every_element_once(rows, n, sm):
 
 
 def test_launch_counts_by_rows_reset_and_skip_cpu_tensors():
-    """Compress and recover count their launches per batch rows; CPU
-    tensors count none, and reset clears the counts."""
+    """The histogram, compress and recover count their launches per batch
+    rows; CPU tensors count none, and reset clears the counts."""
+    empty = {"magnitude_histogram": {}, "hybrid_compress": {}, "recover": {}}
     HC.hybrid_compress.launches_by_rows[25] = 3
+    TT.magnitude_histogram.launches_by_rows[1] = 2
     K.reset_launch_counts()
-    assert K.launch_counts_by_rows() == {"hybrid_compress": {},
-                                         "recover": {}}
+    assert K.launch_counts_by_rows() == empty
     x = torch.from_numpy(_x(2, 100, 9))
+    TT.magnitude_histogram(x, x.abs().amax(-1))
     kept, sign, cnt, ssum, smax = HC.hybrid_compress(x, x.abs().amax(-1))
     RC.recover(kept, sign, x, ssum, smax)
-    assert K.launch_counts_by_rows() == {"hybrid_compress": {},
-                                         "recover": {}}
+    assert K.launch_counts_by_rows() == empty
 
 
 # --- on the card: each kernel against its twin ------------------------------

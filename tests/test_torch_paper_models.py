@@ -55,13 +55,13 @@ def _ref(case, seed):
     return params, flat, spec, apply
 
 
-def _batch(case, seed):
+def _batch(case, seed, b=B):
     _, _, _, shape, n_classes, _ = CASES[case]
     rng = np.random.default_rng(np.random.SeedSequence(seed,
                                                        spawn_key=(95,)))
-    x = rng.standard_normal((C_PART, B) + shape).astype(np.float32)
-    y = rng.integers(0, n_classes, (C_PART, B)).astype(np.int32)
-    w = np.ones((C_PART, B), np.float32)
+    x = rng.standard_normal((C_PART, b) + shape).astype(np.float32)
+    y = rng.integers(0, n_classes, (C_PART, b)).astype(np.int32)
+    w = np.ones((C_PART, b), np.float32)
     w[:, -1] = (rng.random(C_PART) < 0.5)
     return x, y, w
 
@@ -141,3 +141,57 @@ def test_own_init_is_seeded_with_zero_biases(model):
     (63, 9, 4, (3, 3)), (128, 5, 2, (1, 2))])
 def test_same_padding_is_jax_rule(size, k, stride, want):
     assert TPM._same_pad(size, k, stride) == want
+
+
+def test_resnet18_gradient_gap_at_8_samples_is_f32_conditioning():
+    """ResNet-18 (width 64) at B = 8 samples per participant: the f32
+    gradients of both frameworks against an f64 evaluation of the port's
+    model. The reference's own f32 gradient strays from it by more than
+    1e-4 for some participant (two runs on the CPU, per participant:
+    5.9e-4–6.1e-4, 1.1e-6–1.2e-3 and 6.8e-4 — XLA's CPU sums vary between
+    processes; the port's 1.4e-4, 4.9e-4 and 6.4e-4 in both; port vs
+    reference 6.0e-4, 4.9e-4–1.3e-3, 2.1e-4), so a 1e-4 bound between the
+    frameworks
+    cannot hold at 8 samples: the gap is the f32 conditioning of the
+    model (the parameter-free spatial norm on the 4×4 maps of the last
+    stage), not the 2 samples of the test above. Bounds: each f32
+    gradient within 5e-3 of the f64 one and of the other framework's
+    (~7× the largest measured). The measured values are printed."""
+    case = "resnet18-w64"
+    model, kw, *_ = CASES[case]
+    x, y, w = _batch(case, 1, b=8)
+    refs = [_ref(case, seed) for seed in range(C_PART)]
+    _, _, rspec, apply = refs[0]
+
+    def ce_loss(flat, xi, yi, wi):
+        logits = apply(RC.unflatten_vector(flat, rspec), xi)
+        logp = jax.nn.log_softmax(logits)
+        ll = jnp.take_along_axis(logp, yi[:, None], axis=-1)[:, 0]
+        return -jnp.sum(ll * wi) / jnp.maximum(jnp.sum(wi), 1.0)
+
+    spec = TPM.MODELS[model][0](**kw)
+
+    def port_grad(dtype):
+        q = torch.stack([TPM.from_reference(np.asarray(r[1]), model, **kw)
+                         for r in refs]).to(dtype).requires_grad_(True)
+        logits = TPM.MODELS[model][2](TC.unflatten_vector(q, spec),
+                                      torch.from_numpy(x).to(dtype))
+        loss = RoundExecutor._ce_loss(logits, torch.from_numpy(y).long(),
+                                      torch.from_numpy(w).to(dtype))
+        (g,) = torch.autograd.grad(loss.sum(), q)
+        return g.double().numpy()
+
+    g32, g64 = port_grad(torch.float32), port_grad(torch.float64)
+    grad_fn = jax.jit(jax.grad(ce_loss))
+    ref_stray = []
+    for i, (_, rflat, _, _) in enumerate(refs):
+        r32 = np.asarray(grad_fn(rflat, jnp.asarray(x[i]), jnp.asarray(y[i]),
+                                 jnp.asarray(w[i])), np.float64)
+        n64 = np.linalg.norm(g64[i])
+        ref_stray.append(np.linalg.norm(r32 - g64[i]) / n64)
+        port_stray = np.linalg.norm(g32[i] - g64[i]) / n64
+        gap = np.linalg.norm(g32[i] - r32) / np.linalg.norm(r32)
+        print(f"participant {i}: reference vs f64 {ref_stray[-1]:.3g}, "
+              f"port vs f64 {port_stray:.3g}, port vs reference {gap:.3g}")
+        assert ref_stray[-1] <= 5e-3 and port_stray <= 5e-3 and gap <= 5e-3
+    assert max(ref_stray) > 1e-4
