@@ -2,8 +2,9 @@
 """Drive the PyTorch port's paths on one NVIDIA card: the Track-A Caesar
 round on HAR (ragged, masked, error feedback with a bf16 pool), every
 scheme of the paper on its CIFAR-10 ResNet-18 at full width, the wire
-boundary (faults, robust aggregation) on ResNet-18, and serving Qwen1.5-4B
-at full width.
+boundary (faults, robust aggregation) on ResNet-18, the capped client-state
+store with eviction and offload, checkpoint/resume of the simulator,
+serving Qwen1.5-4B at full width and Track-B training of it.
 
     python3 chip_smoke.py
 
@@ -97,7 +98,48 @@ Phases, each of which fails the script on any error:
    for the device's busy share; then a long-cache window: a 4096-position
    cache filled from a seeded generator, 10 teacher-forced steps from
    length 4000, timed and profiled for the decode kernel's share, with the
-   kernel path's last-step logits against the plain path's.
+   kernel path's last-step logits against the plain path's;
+3c. kernels at the Track-B leaf widths (before any model is resident):
+   the histogram, compress and recover on one row of every leaf width of
+   Qwen1.5-4B — n = 707,788,800 (the stacked FFN weights), 388,956,160
+   (embedding, LM head), 262,144,000 (attention weights), 102,400 (stacked
+   norms and QKV biases) and 2,560 — and of the example's qwen-115m (phase
+   9), exact against the plain versions (Σ|x| within rtol 1e-5), one CUDA
+   kernel per call, timed as in phase 3;
+6d. capped store: the dense HAR point with state_capacity 640 (1.28× the
+   cohort: every round after the first evicts) and host, then memmap
+   offload, each bit-identical (global vector, History) to phase 6's
+   uncapped run; without offload and with the restore-error probe: finite,
+   evictions and centroid restores counted, restore_error reported; then
+   the wire path's ResNet-18 point (trimmed mean, faults) with
+   state_capacity 10 (the cohort) and memmap offload, bit-identical to its
+   uncapped run of phase 6c, with exactly the restores from the spill that
+   the draws imply (every earlier client drawn again outside the round
+   before); walls, peak memory and the store's telemetry; the spill
+   directory is deleted afterwards;
+6e. resume: the capped dense HAR point with host offload cut after round
+   2, and fig11's config through the loopback wire with faults and
+   diurnal availability cut with deferred uploads in flight — each through
+   state_dict → CheckpointManager.save → restore → a fresh Simulator's
+   load_state_dict → run(start_round=cut + 1), bit-identical to the
+   straight run (global vector, History tail, fault_log, avail_log);
+8. train path: Track-B training of Qwen1.5-4B at full width (bf16, 3.95 B
+   parameters, random weights from a seeded generator) as
+   ``python -m repro_torch.launch.train`` runs it: batch 8, seq 128, τ 1,
+   θ_u 0.35, θ_d max 0.6, error feedback, 5 steps — loss finite at every
+   step, the histogram twice and compress and recover once per leaf and
+   step, all at one row and at widths phase 3c checked, every leaf's
+   recovered download and sparse upload finite; ms per step, tokens/s,
+   peak memory, and one more step profiled for the busy share and the
+   compression kernels' share of device time;
+9. train example: the Track-B example's qwen-115m (f32, TF32 off) — cuda
+   vs cpu for 3 steps (loss within rtol 2e-6, every leaf within relative
+   L2 1e-5 outside the selections flipped so far, counted from the sign
+   and drop masks), then 30 steps of its learnable stream with the loss
+   falling, the histogram twice and compress and recover once per leaf
+   and step at one row and at widths phase 3c checked, and a
+   CheckpointManager checkpoint after step 10, restored into a fresh
+   state, whose steps 11–30 are bit-identical to the straight run.
 
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. It exits non-zero without a CUDA device
@@ -1062,7 +1104,7 @@ def _wire_cfg(SimConfig, CaesarConfig, aggregation, faults):
         faults=FaultConfig(**WIRE_FAULTS) if faults else FaultConfig())
 
 
-def phase_wire_path(torch, K, SimConfig, Simulator, CaesarConfig):
+def phase_wire_path(torch, K, SimConfig, Simulator, CaesarConfig, twins):
     """WIRE_RUNS through the port's entry points, each for SCHEMES_ROUNDS
     rounds: round walls, the serialized bytes against the exact payload
     model (Σ payload_nbytes(n, k) over every transmission, a CRC retry
@@ -1071,7 +1113,8 @@ def phase_wire_path(torch, K, SimConfig, Simulator, CaesarConfig):
     ``kernel_launches()``. The three final global vectors: the attacked
     mean must deviate from the clean run more than the trimmed mean, which
     keeps the clean accuracy; then fig11's robustness gate at its own
-    config (`_fig11_gate`)."""
+    config (`_fig11_gate`). The trimmed-mean run's final global vector
+    and History go to ``twins["wire"]``."""
     import numpy as np
 
     from repro_torch.fl import faults as F
@@ -1148,6 +1191,8 @@ def phase_wire_path(torch, K, SimConfig, Simulator, CaesarConfig):
         print(f"wire path {name}: " + json.dumps(out[name]))
         finals[name] = (sim.global_flat.detach().cpu(), hist.accuracy[-1],
                         sim.flat0)
+        if name == "trimmed_mean":
+            twins["wire"] = (finals[name][0], hist)
         del sim
         torch.cuda.empty_cache()
     g_clean, acc_clean, g0 = finals["clean"]
@@ -1228,11 +1273,16 @@ def _check_rows(what: str, counts: dict, by_rows: dict, rungs) -> None:
               f"{counts[name]} over the rungs {rungs} checked in phase 3")
 
 
-def phase_main(torch, K, SimConfig, Simulator, CaesarConfig):
-    """The dense HAR point through the port's entry points."""
-    cfg = SimConfig(dataset="har", n_clients=1000, participation=0.5,
-                    data_scale=1.0, rounds=4,
-                    caesar=CaesarConfig(tau=5, b_max=32), device="cuda")
+def _main_cfg(SimConfig, CaesarConfig):
+    return SimConfig(dataset="har", n_clients=1000, participation=0.5,
+                     data_scale=1.0, rounds=4,
+                     caesar=CaesarConfig(tau=5, b_max=32), device="cuda")
+
+
+def phase_main(torch, K, SimConfig, Simulator, CaesarConfig, twins):
+    """The dense HAR point through the port's entry points; its final
+    global vector (on the host) and History go to ``twins["dense"]``."""
+    cfg = _main_cfg(SimConfig, CaesarConfig)
     t0 = time.perf_counter()
     sim = Simulator(cfg)
     setup_s = time.perf_counter() - t0
@@ -1264,6 +1314,7 @@ def phase_main(torch, K, SimConfig, Simulator, CaesarConfig):
            "store": sim.store.telemetry(), "chunk": sim.executor.chunk,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
     print("main path: " + json.dumps(out))
+    twins["dense"] = (sim.global_flat.detach().cpu(), hist)
     return cfg, counts, by_rows, out
 
 
@@ -1675,6 +1726,622 @@ def _leaves(tree):
         yield tree
 
 
+# ---------------------------------------------------------------------------
+# Store edges and resume (ROADMAP item 10), Track-B training (item 14)
+# ---------------------------------------------------------------------------
+
+# capped store: ~1.28× the cohort of 500 (fig10's capped smoke point keeps
+# 16 rows for a cohort of 12), so every round after the first evicts
+CAPPED_CAPACITY = 640
+# ResNet-18 wire point (10 of 100 clients a round): a pool of exactly the
+# cohort keeps only the last round's clients, so every earlier client
+# drawn again comes back from the spill (`_offload_restores_due`)
+RESNET_CAPACITY = 10
+CAPPED_OFFLOADS = ("host", "memmap")
+TRAIN_ARCH = "qwen1.5-4b"
+TRAIN_STEPS = 5
+TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+              "8", "--seq", "128", "--tau", "1", "--theta-u", "0.35",
+              "--theta-d-max", "0.6", "--error-feedback", "--seed", "0"]
+# the example's size (qwen-115m, f32): cuda vs cpu steps, then the
+# learnable stream with a checkpoint
+EXAMPLE_PARITY_STEPS, EXAMPLE_PARITY_BATCH, EXAMPLE_PARITY_SEQ = 3, 4, 128
+EXAMPLE_STEPS, EXAMPLE_CKPT_STEP = 30, 10
+EXAMPLE_BATCH, EXAMPLE_SEQ = 8, 256
+# the test of fl/distributed.py (tests/test_torch_distributed.py): loss
+# within rtol 2e-6, every leaf within relative L2 1e-5 of the reference's
+EXAMPLE_LOSS_RTOL = 2e-6
+EXAMPLE_REL_L2 = 1e-5
+# phase 5's FLIP_CASCADE for the example's 67,129,856 parameters: its
+# upload top-k flips ~60–90 bin-edge elements a step between the card and
+# the cpu (236 in 3 steps, H100), where phase 5's 164,134 see 0–4
+EXAMPLE_FLIP_CASCADE = 1000
+
+
+def _dense_leaf_sizes(cfg) -> list:
+    """numel of every parameter leaf of a dense config (with QKV bias):
+    embed, final_norm, lm_head, ln1, ln2, wq, wk, wv, wo, bq, bk, bv,
+    w_gate, w_up, w_down."""
+    n, d, f, v = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    sizes = [v * d, d, d * v, n * d, n * d, n * d * q, n * d * kv,
+             n * d * kv, n * q * d, n * f * d, n * d * f, n * f * d]
+    if cfg.qkv_bias:
+        sizes += [n * q, n * kv, n * kv]
+    return sizes
+
+
+def phase_track_b_kernels(torch, K, timer):
+    """Phase 3c: the three compression kernels at every leaf width of the
+    Track-B steps of phases 8 and 9 (Qwen1.5-4B and the example's
+    qwen-115m; one row of the whole leaf), before any model is resident:
+    exact against the plain versions (Σ|x| within SUM_RTOL), one CUDA
+    kernel per call, timed as in phase 3 (compress also on x per row, the
+    train step's call)."""
+    import repro_torch.configs as configs
+    sizes = sorted(set(_dense_leaf_sizes(configs.get(TRAIN_ARCH)))
+                   | set(_dense_leaf_sizes(_load_example().config())),
+                   reverse=True)
+    out = {}
+    for n in sizes:
+        check(n < 2 ** 31, f"leaf of {n} elements: the compressed set's "
+              "int32 count would overflow")
+        out[n] = phase_kernels(torch, K, timer, n, (1,), (1,), (1,))
+        torch.cuda.empty_cache()
+    return sizes, out
+
+
+def _history_tail(h, after: int) -> dict:
+    keep = [i for i, r in enumerate(h.rounds) if r > after]
+    return {k: [getattr(h, k)[i] for i in keep]
+            for k in ("rounds", "sim_time", "traffic_bits", "accuracy",
+                      "waiting") + (("wire_bits",) if h.wire_bits else ())}
+
+
+def _same_run(torch, what, a_flat, a_hist, b_flat, b_hist, after=0):
+    check(torch.equal(a_flat.cpu(), b_flat.cpu()),
+          f"{what}: global vectors differ")
+    check(_history_tail(a_hist, after) == _history_tail(b_hist, after),
+          f"{what}: History differs: {_history_tail(a_hist, after)} vs "
+          f"{_history_tail(b_hist, after)}")
+
+
+def _capped_run(torch, K, Simulator, cfg):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    sim = Simulator(cfg)
+    hist = sim.run()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    expect = sim.executor.kernel_launches()
+    for k, want in expect.items():
+        check(counts[k] == want, f"capped {cfg.state_offload}: {k} "
+              f"launched {counts[k]} times, the steps imply {want}")
+    tel = sim.store.telemetry()
+    check(tel["capacity"] == cfg.state_capacity and tel["evictions"] > 0,
+          f"capped run evicted nothing: {tel}")
+    out = {"wall_per_round_s": hist.wall_per_round,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "store": tel, "executor": {
+               k: v for k, v in sim.executor.telemetry().items()
+               if k in ("restore_error", "chunk_calls", "rounds")},
+           "launches": counts}
+    return sim, hist, out
+
+
+def _offload_restores_due(sim) -> int:
+    """Rows a pool of exactly the cohort must restore from the spill: the
+    clients of each round that were drawn before but not in the round
+    just before it (that round's cohort is all the pool holds)."""
+    check(sim.store.capacity == sim.n_part, "the pool is not the cohort")
+    seen, prev, due = set(), set(), 0
+    for e in sim.round_log:
+        parts = {int(c) for c in e["parts"]}
+        due += len(parts & (seen - prev))
+        seen |= parts
+        prev = parts
+    return due
+
+
+def phase_capped(torch, K, SimConfig, Simulator, CaesarConfig, main_cfg,
+                 twins):
+    """Phase 6d: the capped store on the card. The dense HAR point with
+    state_capacity CAPPED_CAPACITY: host and memmap offload bit-identical
+    (global vector, History) to the uncapped run of phase 6; no offload
+    with the restore-error probe: finite, evictions and centroid restores
+    counted, restore_error reported. Then the wire path's ResNet-18 point
+    (trimmed mean, faults, EF, bf16 pool) with state_capacity
+    RESNET_CAPACITY and memmap offload, bit-identical to its uncapped run
+    of phase 6c, every spilled row drawn again restored from the spill;
+    the spill directory is deleted afterwards. ``twins`` holds the
+    uncapped runs of phases 6 and 6c and gets the host run's as
+    ``"capped_host"``."""
+    import shutil
+    out, launches = {}, {}
+    g_ref, h_ref = twins["dense"]
+    spill = os.path.join(ROOT, "build", "chip_smoke_spill")
+    for off in CAPPED_OFFLOADS + ("none",):
+        cfg = dataclasses.replace(
+            main_cfg, state_capacity=CAPPED_CAPACITY, state_offload=off,
+            state_dir=os.path.join(spill, f"har_{off}"),
+            measure_eviction_error=off == "none")
+        sim, hist, o = _capped_run(torch, K, Simulator, cfg)
+        if off == "none":
+            err = o["executor"].get("restore_error")
+            check(err is not None and err["count"] > 0
+                  and o["store"]["restores"]["centroid"] == err["count"]
+                  and math.isfinite(err["max"]),
+                  f"capped none: restore error not reported: {o}")
+            check(bool(torch.isfinite(sim.global_flat).all()),
+                  "capped none: non-finite global vector")
+            check(all(math.isfinite(a) for a in hist.accuracy),
+                  "capped none: bad accuracy")
+            o["rel_l2_to_uncapped"] = _rel_l2(
+                torch, sim.global_flat.cpu(), g_ref)
+        else:
+            _same_run(torch, f"capped dense HAR, {off} offload",
+                      sim.global_flat, hist, g_ref, h_ref)
+            check(o["store"]["restores"]["offload"] > 0,
+                  f"capped {off}: no row came back from the spill")
+            if off == "host":
+                twins["capped_host"] = (sim.global_flat.detach().cpu(),
+                                         hist, sim.avail_log,
+                                         sim.fault_log)
+        o["accuracy"] = hist.accuracy
+        out[f"dense_har_{off}"] = o
+        launches[f"dense_har_{off}"] = o["launches"]
+        print(f"capped dense HAR {off}: " + json.dumps(o))
+        del sim
+        torch.cuda.empty_cache()
+    # ResNet-18 at width 64 through the wire with faults, memmap spill
+    wcfg = _wire_cfg(SimConfig, CaesarConfig, "trimmed_mean", True)
+    g_w, h_w = twins["wire"]
+    cfg = dataclasses.replace(
+        wcfg, state_capacity=RESNET_CAPACITY, state_offload="memmap",
+        state_dir=os.path.join(spill, "resnet18"))
+    sim, hist, o = _capped_run(torch, K, Simulator, cfg)
+    _same_run(torch, "capped ResNet-18 wire point, memmap offload",
+              sim.global_flat, hist, g_w, h_w)
+    due = _offload_restores_due(sim)
+    o["offload_restores_due"] = due
+    check(due > 0 and o["store"]["restores"]["offload"] == due,
+          f"capped ResNet-18: {o['store']['restores']['offload']} rows came "
+          f"back from the spill, the draws imply {due}")
+    o["spill_bytes_on_disk"] = sum(
+        os.stat(os.path.join(dp, f)).st_blocks * 512
+        for dp, _, fs in os.walk(os.path.join(spill, "resnet18"))
+        for f in fs)
+    out["resnet18_wire_memmap"] = o
+    launches["resnet18_wire_memmap"] = o["launches"]
+    print("capped ResNet-18 wire memmap: " + json.dumps(o))
+    del sim
+    torch.cuda.empty_cache()
+    shutil.rmtree(spill, ignore_errors=True)
+    check(not os.path.exists(spill), "the spill directory is still there")
+    return out, launches
+
+
+def _resume_twice(torch, Simulator, cfg, cut, ckpt_dir):
+    """The run of ``cut`` rounds → state_dict → CheckpointManager.save →
+    restore → a fresh Simulator's load_state_dict → run(start_round=cut+1).
+    Returns (resumed simulator, its History, snapshot facts)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    first = Simulator(dataclasses.replace(cfg, rounds=cut))
+    first.run()
+    snap = first.state_dict()
+    del first
+    mgr = CheckpointManager(ckpt_dir, keep=1)
+    t0 = time.perf_counter()
+    path = mgr.save(snap, step=cut)
+    save_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+    t0 = time.perf_counter()
+    restored, step = mgr.restore_latest(snap)
+    restore_s = time.perf_counter() - t0
+    check(step == cut, f"restored step {step}, want {cut}")
+    sim = Simulator(cfg)
+    sim.load_state_dict(restored)
+    hist = sim.run(start_round=cut + 1)
+    return sim, hist, {"cut": cut, "checkpoint_bytes": size,
+                       "save_s": save_s, "restore_s": restore_s,
+                       "deferred_in_flight": len(snap["deferred"]),
+                       "offloaded_rows": int(len(
+                           snap["store"]["offload_clients"]))}
+
+
+def _same_logs(what, a, b):
+    check(len(a.avail_log) == len(b.avail_log)
+          and all(x == y for x, y in zip(a.avail_log, b.avail_log)),
+          f"{what}: avail_log differs")
+    check(len(a.fault_log) == len(b.fault_log), f"{what}: fault_log length")
+    for x, y in zip(a.fault_log, b.fault_log):
+        for k in x:
+            same = ((x[k] == y[k]).all() if hasattr(x[k], "shape")
+                    else x[k] == y[k])
+            check(bool(same), f"{what}: fault_log {k} differs in round "
+                  f"{x['round']}")
+
+
+def phase_resume(torch, SimConfig, Simulator, CaesarConfig, main_cfg,
+                 twins):
+    """Phase 6e: two resumes through CheckpointManager on the card, each
+    bit-identical to the straight run (global vector, History tail,
+    fault_log, avail_log): the capped dense HAR point with host offload cut
+    after round 2 (its straight run is phase 6d's), and fig11's config
+    through the loopback wire with faults and diurnal availability, cut at
+    a round with deferred uploads in flight."""
+    import shutil
+
+    from repro_torch.fl.availability import AvailabilityConfig
+    from repro_torch.fl.faults import FaultConfig
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    out = {}
+    cfg = dataclasses.replace(main_cfg, state_capacity=CAPPED_CAPACITY,
+                              state_offload="host")
+    g, h, avail, faults = twins["capped_host"]
+    straight = type("Run", (), {"avail_log": avail, "fault_log": faults})
+    sim, hist, facts = _resume_twice(torch, Simulator, cfg, 2, ckpt)
+    _same_run(torch, "capped HAR resume", sim.global_flat, hist, g, h,
+              after=2)
+    _same_logs("capped HAR resume", sim, straight)
+    out["dense_har_capped_host"] = facts
+    print("resume capped dense HAR: " + json.dumps(facts))
+    del sim
+    fcfg = SimConfig(
+        dataset="oppo_ts", rounds=8, n_clients=12, data_scale=0.01,
+        eval_every=1, participation=0.75, seed=5,
+        dataset_kwargs={"n_features": 64}, device="cuda",
+        caesar=CaesarConfig(tau=2, b_max=8, use_error_feedback=True),
+        wire="loopback", aggregation="trimmed_mean",
+        faults=FaultConfig(dropout_rate=0.1, straggler_deadline=1.2,
+                           late_policy="defer", corrupt_rate=0.2,
+                           byzantine_frac=0.2, attack="sign_flip",
+                           attack_scale=5.0),
+        availability=AvailabilityConfig(kind="diurnal", day_rounds=4,
+                                        duty=0.6, flake_rate=0.05))
+    ref = Simulator(fcfg)
+    rh = ref.run()
+    cuts = [t + 1 for t, e in enumerate(ref.fault_log)
+            if e["n_deferred_out"] > 0 and 2 < t + 1 < fcfg.rounds]
+    check(bool(cuts), "fig11 resume: no round leaves a deferred upload")
+    sim, hist, facts = _resume_twice(torch, Simulator, fcfg, cuts[0], ckpt)
+    check(facts["deferred_in_flight"] > 0, "fig11 resume: nothing in flight")
+    _same_run(torch, "fig11 wire resume", sim.global_flat, hist,
+              ref.global_flat, rh, after=cuts[0])
+    _same_logs("fig11 wire resume", sim, ref)
+    facts["wire_bits_equal"] = hist.wire_bits == _history_tail(
+        rh, cuts[0])["wire_bits"]
+    check(facts["wire_bits_equal"], "fig11 resume: wire bits differ")
+    out["fig11_wire_faults_diurnal"] = facts
+    print("resume fig11 wire: " + json.dumps(facts))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return out
+
+
+class _FiniteOutputs:
+    """While entered, records for each call of ``C.fused_hybrid_roundtrip``
+    (a leaf's recovered download) and ``C.fused_topk`` (its sparse upload)
+    whether its output is all finite (a device flag; no host wait)."""
+
+    NAMES = ("fused_hybrid_roundtrip", "fused_topk")
+
+    def __init__(self, torch, C):
+        self.torch, self.C = torch, C
+        self.flags = {k: [] for k in self.NAMES}
+
+    def __enter__(self):
+        self._orig = {k: getattr(self.C, k) for k in self.NAMES}
+        for k, fn in self._orig.items():
+            def wrapped(*a, _fn=fn, _flags=self.flags[k], **kw):
+                out = _fn(*a, **kw)
+                _flags.append(self.torch.isfinite(out[0]).all())
+                return out
+            setattr(self.C, k, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self._orig.items():
+            setattr(self.C, k, fn)
+
+
+def phase_train(torch, K, checked_sizes):
+    """Phase 8: Track-B training of Qwen1.5-4B at full width (bf16, random
+    weights from a seeded generator) as `python -m
+    repro_torch.launch.train` runs it (TRAIN_ARGS): loss finite at every
+    step; the histogram twice and compress and recover once per leaf and
+    step (all at one row) in the counts zeroed just before the run and read
+    just after; every leaf's width among those phase 3c checked; no leaf's
+    recovered download or sparse upload non-finite. Then one more step
+    profiled for the busy share and the kernels' share of device time."""
+    from repro_torch.core import compression as C
+    from repro_torch.fl import distributed as D
+    from repro_torch.launch import train
+
+    args = train.parser().parse_args(TRAIN_ARGS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _FiniteOutputs(torch, C) as fin:
+        res = train.run(args, log=print)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    by_rows = K.launch_counts_by_rows()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    state, cfg = res["state"], res["cfg"]
+    check(cfg.n_layers == 40 and cfg.d_model == 2560
+          and cfg.vocab == 151936 and cfg.dtype == "bfloat16",
+          "the train phase must run the published width in bf16")
+    sizes = [x.numel() for x in D.tree_leaves(state.params)]
+    n_params = sum(sizes)
+    check(sorted(sizes) == sorted(_dense_leaf_sizes(cfg)),
+          "the model's leaves are not the ones phase 3c sized")
+    check(set(sizes) <= set(checked_sizes), "a leaf width was not checked "
+          "in phase 3c")
+    check(all(math.isfinite(x) for x in res["losses"])
+          and len(res["losses"]) == TRAIN_STEPS, f"losses {res['losses']}")
+    leaves, steps = len(sizes), TRAIN_STEPS
+    want = {"magnitude_histogram": 2 * leaves * steps,
+            "hybrid_compress": leaves * steps, "recover": leaves * steps,
+            "decode_attention": 0}
+    check(counts == want, f"train path launches {counts}, want {want}")
+    for name, per in by_rows.items():
+        check(set(per) <= {1} and sum(per.values()) == counts[name],
+              f"train path: {name} ran at rows {per}, want one row")
+    for k, flags in fin.flags.items():
+        check(len(flags) == leaves * steps, f"{k} ran {len(flags)} times, "
+              f"want once per leaf and step ({leaves * steps})")
+        check(bool(torch.stack(flags).all()),
+              f"a leaf's {k} output holds a non-finite value")
+    walls, losses = res["walls"], res["losses"]
+    warm = sorted(walls[1:])
+    wall = warm[len(warm) // 2]
+    # one more step under the profiler, on the same state and a batch of
+    # the same stream
+    from repro_torch.core import rng as RNG
+    batch = train.make_batch(RNG.stream(1, RNG.KIND_DATASET), cfg,
+                             args.batch, args.seq, "cuda")
+    step_fn = res["step_fn"]
+    del res
+    box = {"state": state}
+    del state
+
+    def one():
+        box["state"], _ = step_fn(box["state"], batch)
+    kernels, dev_s, win = _profile_kernels(torch, one,
+                                           "profile_train_qwen4b.txt")
+    ours = {}
+    for ev in kernels:
+        for name in ("magnitude_histogram_kernel", "hybrid_compress_kernel",
+                     "recover_kernel"):
+            if name in ev.key:
+                ours[name] = ours.get(name, 0.0) + (
+                    ev.self_device_time_total / 1e3)
+    out = {"params": n_params, "leaves": leaves, "losses": losses,
+           "step_walls_s": walls, "run_s": run_s,
+           "ms_per_step": wall * 1e3,
+           "tokens_per_s": args.batch * args.seq / wall,
+           "peak_mem_gb": peak, "launches": counts,
+           "launches_by_rows": by_rows,
+           "profiled_step": {
+               "device_kernel_s": dev_s, "device_busy_s": win["busy_s"],
+               "profiled_step_wall_s": win["profiled_run_s"],
+               "device_busy_share": _busy_share(win["busy_s"], wall),
+               "compression_kernels_ms": ours,
+               "compression_kernels_share_of_device": (
+                   sum(ours.values()) / 1e3 / dev_s if dev_s else None),
+               "top_kernels": [{"name": ev.key[:90],
+                                "ms": ev.self_device_time_total / 1e3,
+                                "launches": ev.count}
+                               for ev in kernels[:15]]}}
+    print("train path (Qwen1.5-4B, Track B): " + json.dumps(out))
+    del box, step_fn, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _load_example():
+    """examples/train_lm_cohort_torch.py as a module (its config, batch
+    stream and Caesar settings)."""
+    import importlib.util
+    path = os.path.join(ROOT, "examples", "train_lm_cohort_torch.py")
+    spec = importlib.util.spec_from_file_location("train_lm_cohort_torch",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class _CallMasks:
+    """While entered, records on the host each call's selection: the int8
+    sign mask of a ``C.fused_compress`` (0 marks a full-precision slot) or
+    the dropped mask of a ``C.topk_sparsify_at`` — the Track-B step's
+    download and upload."""
+
+    def __init__(self, C):
+        self.C, self.calls = C, []
+
+    def __enter__(self):
+        C = self.C
+        fc, tk = self._orig = (C.fused_compress, C.topk_sparsify_at)
+
+        def compress(x, thr):
+            out = fc(x, thr)
+            self.calls.append(out[1].cpu())
+            return out
+
+        def topk(g, thr):
+            self.calls.append((g.abs() < thr.reshape(-1, 1)).cpu())
+            return tk(g, thr)
+        C.fused_compress, C.topk_sparsify_at = compress, topk
+        return self
+
+    def __exit__(self, *exc):
+        self.C.fused_compress, self.C.topk_sparsify_at = self._orig
+
+
+def _example_parity(torch, ex, D, M, C, RNG):
+    """cuda vs cpu for EXAMPLE_PARITY_STEPS steps of the example's model
+    from one initial state and batches: loss within EXAMPLE_LOSS_RTOL and
+    every parameter leaf within EXAMPLE_REL_L2 (the test of
+    fl/distributed.py's bounds) outside the elements whose selection
+    flipped so far, counted from the sign and drop masks (phase 5's rule;
+    past EXAMPLE_FLIP_CASCADE flips the steps are reported, not
+    gated)."""
+    cfg = ex.config()
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = RNG.stream(0, RNG.KIND_DATASET)
+    batches = [ex.batch_at(rng, t, EXAMPLE_PARITY_BATCH, EXAMPLE_PARITY_SEQ,
+                           cfg.vocab, "cpu")
+               for t in range(EXAMPLE_PARITY_STEPS)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = D.tree_map(lambda a: a.to(dev, copy=True), params)
+        state = D.init_state(p, ex.DIST)
+        step = D.make_train_step(cfg, ex.DIST, device=dev)
+        losses, trees, masks = [], [], []
+        for b in batches:
+            with _CallMasks(C) as m:
+                state, met = step(state, {k: v.to(dev)
+                                          for k, v in b.items()})
+            losses.append(float(met["loss"]))
+            trees.append([x.detach().cpu() for x in
+                          D.tree_leaves(state.params)])
+            masks.append(m.calls)
+        runs[dev] = (losses, trees, masks)
+        del state, step, p
+    (lg, tg, mg), (lc, tc, mc) = runs["cuda"], runs["cpu"]
+    steps, total = [], 0
+    for t in range(EXAMPLE_PARITY_STEPS):
+        check(len(mg[t]) == len(mc[t]), "the call streams differ")
+        flips = sum(int((a != b).sum()) for a, b in zip(mg[t], mc[t]))
+        total += flips
+        worst = 0.0
+        for a, b in zip(tg[t], tc[t]):
+            d = (a - b).reshape(-1)
+            kept = torch.ones_like(d, dtype=torch.bool)
+            if total:
+                kept[torch.topk(d.abs(), min(total, d.numel())).indices] = \
+                    False
+            worst = max(worst, float(torch.linalg.vector_norm(d[kept])
+                                     / torch.linalg.vector_norm(b)))
+        gated = total <= EXAMPLE_FLIP_CASCADE
+        rl = abs(lg[t] - lc[t]) / abs(lc[t])
+        steps.append({"step": t, "flips": flips, "flips_so_far": total,
+                      "max_leaf_rel_l2": worst, "loss_cuda": lg[t],
+                      "loss_cpu": lc[t], "loss_rel": rl, "gated": gated})
+        if gated:
+            check(rl <= EXAMPLE_LOSS_RTOL, f"example step {t}: loss "
+                  f"{lg[t]} on the card vs {lc[t]} on the cpu")
+            check(worst <= EXAMPLE_REL_L2, f"example step {t}: a leaf is "
+                  f"{worst} apart outside {total} flipped elements")
+    return steps
+
+
+def phase_train_example(torch, K, checked_sizes):
+    """Phase 9: Track B at the example's size (qwen-115m, f32, TF32 off): cuda
+    vs cpu (`_example_parity`); then EXAMPLE_STEPS steps of the example's
+    learnable stream on the card with the loss falling (the mean of the
+    last 5 below the mean of the first 5), the histogram twice and compress
+    and recover once per leaf and step, all at one row and at widths phase
+    3c checked, in the counts of those steps; a CheckpointManager checkpoint
+    after step EXAMPLE_CKPT_STEP, restored into a fresh state, whose
+    remaining steps are bit-identical (losses, params, stale model,
+    residuals) to the straight run's."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import compression as C
+    from repro_torch.core import rng as RNG
+    from repro_torch.fl import distributed as D
+    from repro_torch.models import model as M
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    ex = _load_example()
+    t0 = time.perf_counter()
+    parity = _example_parity(torch, ex, D, M, C, RNG)
+    parity_s = time.perf_counter() - t0
+    cfg = ex.config()
+    dev = torch.device("cuda")
+    n_params = None
+
+    def fresh(seed):
+        nonlocal n_params
+        p = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                          dev)
+        n_params = sum(x.numel() for x in D.tree_leaves(p))
+        return D.init_state(p, ex.DIST)
+    rng = RNG.stream(0, RNG.KIND_DATASET)
+    batches = [ex.batch_at(rng, t, EXAMPLE_BATCH, EXAMPLE_SEQ, cfg.vocab, dev)
+               for t in range(EXAMPLE_STEPS)]
+    step = D.make_train_step(cfg, ex.DIST, device=dev)
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mgr = CheckpointManager(ckpt, keep=1)
+    state = fresh(0)
+    K.reset_launch_counts()
+    losses, walls = [], []
+    for t in range(EXAMPLE_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, met = step(state, batches[t])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        losses.append(met["loss"])
+        if t + 1 == EXAMPLE_CKPT_STEP:
+            mgr.save(state, t + 1)
+    counts = K.launch_counts()
+    by_rows = K.launch_counts_by_rows()
+    sizes = [x.numel() for x in D.tree_leaves(state.params)]
+    check(sorted(sizes) == sorted(_dense_leaf_sizes(cfg)),
+          "the example's leaves are not the ones phase 3c sized")
+    check(set(sizes) <= set(checked_sizes), "an example leaf width was not "
+          "checked in phase 3c")
+    leaves = len(sizes)
+    want = {"magnitude_histogram": 2 * leaves * EXAMPLE_STEPS,
+            "hybrid_compress": leaves * EXAMPLE_STEPS,
+            "recover": leaves * EXAMPLE_STEPS, "decode_attention": 0}
+    check(counts == want, f"example launches {counts}, want {want}")
+    for name, per in by_rows.items():
+        check(set(per) <= {1} and sum(per.values()) == counts[name],
+              f"example: {name} ran at rows {per}, want one row")
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    first, last = (sum(losses[:5]) / 5, sum(losses[-5:]) / 5)
+    check(last < first, f"the loss did not fall: {losses}")
+    restored, at = mgr.restore_latest(fresh(1))
+    check(at == EXAMPLE_CKPT_STEP, f"restored step {at}")
+    check(int(restored.step) == EXAMPLE_CKPT_STEP, "restored step counter")
+    tail = []
+    for t in range(EXAMPLE_CKPT_STEP, EXAMPLE_STEPS):
+        restored, met = step(restored, batches[t])
+        tail.append(float(met["loss"]))
+    check(tail == losses[EXAMPLE_CKPT_STEP:], "resumed losses differ: "
+          f"{tail} vs {losses[EXAMPLE_CKPT_STEP:]}")
+    for name in ("params", "prev_params", "ef"):
+        for a, b in zip(D.tree_leaves(getattr(restored, name)),
+                        D.tree_leaves(getattr(state, name))):
+            check(torch.equal(a, b), f"resumed {name} differ from the "
+                  "straight run's")
+    warm = sorted(walls[1:])
+    out = {"params": n_params, "parity": parity, "parity_s": parity_s,
+           "losses": losses, "loss_first5_mean": first,
+           "loss_last5_mean": last, "resumed_bit_identical": True,
+           "ms_per_step": warm[len(warm) // 2] * 1e3,
+           "tokens_per_s": EXAMPLE_BATCH * EXAMPLE_SEQ / warm[len(warm) // 2],
+           "launches": counts, "launches_by_rows": by_rows}
+    print("train example (qwen-115m): " + json.dumps(out))
+    del state, restored, batches, step
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+TRACK_B_TIMER = dict(windows=5, iters=3)   # rows of 10^8 elements: short
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1746,15 +2413,19 @@ def main() -> int:
     dres = timed("decode_kernel", phase_decode, torch,
                  _Timer(torch, flush, windows=11))
     _scratch_zeroed(torch, build, "the decode kernel phase")
+    tb_sizes, tbres = timed("track_b_kernels", phase_track_b_kernels, torch,
+                            K, _Timer(torch, flush, **TRACK_B_TIMER))
+    _scratch_zeroed(torch, build, "the kernels at the Track-B leaf widths")
     del flush, wide_timer
     torch.cuda.empty_cache()
     parity = timed("parity", phase_parity, torch, SimConfig, Simulator,
                    CaesarConfig)
     modes_parity = timed("modes_parity", phase_modes_parity, torch,
                          SimConfig, Simulator, CaesarConfig)
+    twins: dict = {}     # uncapped runs the capped and resumed ones equal
     cfg, counts, by_rows, main_out = timed(
         "round_path", phase_main, torch, K, SimConfig, Simulator,
-        CaesarConfig)
+        CaesarConfig, twins)
     prof = timed("round_profile", phase_profile, torch, cfg, Simulator,
                  main_out["wall_per_round_s"])
     modes_path = timed("modes_path", phase_modes_path, torch, K, SimConfig,
@@ -1765,9 +2436,18 @@ def main() -> int:
         "schemes_profile", phase_schemes_profile, torch, SimConfig, Simulator,
         CaesarConfig, {k: v["wall_per_round_s"] for k, v in schemes.items()})
     wire = timed("wire_path", phase_wire_path, torch, K, SimConfig,
-                 Simulator, CaesarConfig)
+                 Simulator, CaesarConfig, twins)
+    capped, capped_launches = timed("capped_store", phase_capped, torch, K,
+                                    SimConfig, Simulator, CaesarConfig, cfg,
+                                    twins)
+    resume = timed("resume", phase_resume, torch, SimConfig, Simulator,
+                   CaesarConfig, cfg, twins)
+    del twins
     serve_counts, serve = timed("serve_path", phase_serve, torch, K)
-    _scratch_zeroed(torch, build, "the round, schemes and serve paths")
+    train_out = timed("train_path", phase_train, torch, K, tb_sizes)
+    example = timed("train_example", phase_train_example, torch, K, tb_sizes)
+    _scratch_zeroed(torch, build, "the round, schemes, store, serve and "
+                    "train paths")
 
     replaces = {
         "magnitude_histogram": "src/repro/kernels/topk_threshold.py:34",
@@ -1801,7 +2481,18 @@ def main() -> int:
                     "library_ms", "max_abs_err")}
                 for key, how in ((name, ""),
                                  (name + "_per_row", " x per row"))
-                for r in (1, 2, 8) if (key, r) in wres}})
+                for r in (1, 2, 8) if (key, r) in wres},
+            "launches_train_path": train_out["launches"][name],
+            "launches_capped_path": {k: v[name]
+                                     for k, v in capped_launches.items()},
+            "track_b": {f"[1, {n}]{how}": {
+                k: tbres[n][(key, 1)][k] for k in (
+                    "ms", "kernel_only_ms", "bound_ms", "plain_ms",
+                    "library_ms", "max_abs_err")}
+                for n in tb_sizes
+                for key, how in ((name, ""),
+                                 (name + "_per_row", " x per row"))
+                if (key, 1) in tbres[n]}})
         if name in by_rows:
             kernels[-1]["launches_by_rows"] = by_rows[name]
     r = dres["serve"]
@@ -1832,7 +2523,12 @@ def main() -> int:
                    "main": main_out, "profile": prof,
                    "modes_path": modes_path, "wire_path": wire,
                    "schemes": schemes, "schemes_profile": schemes_prof,
-                   "serve": serve, "phase_s": phase_s, "kernels": kernels},
+                   "serve": serve, "kernels_track_b": {
+                       f"{k[0]}[1, {n}]": v for n, r in tbres.items()
+                       for k, v in r.items()},
+                   "capped_store": capped, "resume": resume,
+                   "train_path": train_out, "train_example": example,
+                   "phase_s": phase_s, "kernels": kernels},
                   f, indent=1)
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -213,7 +213,8 @@ def fused_histogram_cdf(x: torch.Tensor
     as one row). The cdf is shared state: thresholds for the SAME tensor at
     many ratios are `threshold_from_cdf` lookups."""
     xr = _rows(x).to(torch.float32).contiguous()
-    max_abs = torch.amax(xr.abs(), dim=-1)
+    # max |x| per row (exact: no abs temporary the size of x)
+    max_abs = torch.linalg.vector_norm(xr, float("inf"), dim=-1)
     hist = _tt.magnitude_histogram(xr, max_abs)
     return torch.cumsum(hist, dim=-1).to(torch.float32), max_abs
 
@@ -261,3 +262,46 @@ def topk_sparsify_at(g: torch.Tensor, thr: torch.Tensor
     sparse = torch.where(dropped, 0.0, g2).to(g.dtype).reshape(g.shape)
     n_keep = g2.shape[-1] - dropped.sum(dim=-1)
     return sparse, topk_payload_bits(n_keep)
+
+
+# ---------------------------------------------------------------------------
+# Whole-tensor operators of Track B (one parameter leaf of any shape)
+# ---------------------------------------------------------------------------
+
+def _leaf_row(x: torch.Tensor) -> torch.Tensor:
+    """A leaf as one f32 row [1, numel]: the reference thresholds the whole
+    leaf (its ``_bisect_threshold`` reshapes to [-1])."""
+    n = x.numel()
+    if n >= 2 ** 31:
+        # the compress kernel counts the compressed set in int32
+        raise ValueError(f"a leaf of {n} elements overflows the int32 count "
+                         "of the compressed set")
+    return x.reshape(1, n).to(torch.float32)
+
+
+def _ratio_row(ratio, device) -> torch.Tensor:
+    return torch.as_tensor(ratio, dtype=torch.float32).reshape(1).to(device)
+
+
+def fused_hybrid_roundtrip(x: torch.Tensor, local: torch.Tensor, ratio
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused compress→recover of one leaf against the stale ``local`` (same
+    shape), in f32: the threshold from one histogram of the whole leaf,
+    then the Fig.-3 sender and receiver. Returns (recovered f32 [x.shape],
+    payload bits [1])."""
+    xr = _leaf_row(x)
+    thr = fused_threshold(xr, _ratio_row(ratio, xr.device))
+    kept, sign, count, sum_abs, max_abs = fused_compress(xr, thr)
+    del xr
+    mean_abs = sum_abs / torch.clamp(count, min=1).to(torch.float32)
+    rec = fused_recover(kept, sign, _leaf_row(local), mean_abs, max_abs)
+    return rec.reshape(x.shape), hybrid_payload_bits(x.numel(), count)
+
+
+def fused_topk(g: torch.Tensor, ratio) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k sparsify one leaf at its whole-leaf histogram threshold.
+    Returns (sparse [g.shape] in g's dtype, payload bits [1])."""
+    gr = _leaf_row(g)
+    thr = fused_threshold(gr, _ratio_row(ratio, g.device))
+    sparse, bits = topk_sparsify_at(gr, thr)
+    return sparse.to(g.dtype).reshape(g.shape), bits

@@ -1,0 +1,344 @@
+"""Track B: datacenter cohort-mode Caesar — the port of
+``repro.fl.distributed`` for one pod (``mesh=None``).
+
+Pods are clients: each runs τ local SGD steps from a *recovered* initial
+model (the staleness-aware download deviation), derives its local delta,
+sparsifies it (top-k upload with optional error feedback), and the server
+applies the compressed delta. On one pod (the only mode ported) the
+cohort is the whole device and the compression deviation is still applied,
+so convergence semantics match Track A.
+
+Every parameter leaf goes through the Track-A compression operators
+(`repro_torch.core.compression.fused_hybrid_roundtrip` and `fused_topk`)
+as one row [1, numel]: per leaf and step, two magnitude histograms
+(download threshold, upload top-k), one hybrid compress and one recover —
+the hand-written CUDA kernels on the card, their plain twins on the CPU.
+
+State is a `TrainState` of nested dicts of tensors; per-pod buffers
+(``prev_params``, ``ef``) carry a leading ``[1]`` pod axis. The reference's
+order of casts is kept: f32 into the kernels, the recovered download cast
+to the stale model's dtype, the delta in the model dtype, the server step
+in f32 and cast back. Work goes leaf by leaf and frees each leaf's
+temporaries before the next, so a 4B-parameter bf16 model's step holds a
+few whole-model trees at a time, not the reference's whole-tree
+intermediates.
+
+A mesh (pods over a "pod" axis, FSDP/TP within a pod) is not ported:
+ROADMAP queue 1 item 13.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import compression as C
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class DistConfig:
+    theta_d: float = 0.3          # this round's download ratio (from plan)
+    theta_u: float = 0.35         # this round's upload ratio (from plan)
+    server_lr: float = 1.0
+    local_lr: float = 1e-2
+    use_error_feedback: bool = False
+    simulate_download: bool = True   # keep prev-params buffer + recovery path
+    compressed_collective: bool = False  # bf16 wire format of the delta
+    prev_int8: bool = False          # int8 stale-model buffer (absmax-scaled;
+                                     # recovery reference only)
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Any                   # global model {name: tensor}
+    prev_params: Optional[Any]    # [n_pods, ...] cohort-local stale models
+    ef: Optional[Any]             # [n_pods, ...] error-feedback buffers
+    step: torch.Tensor            # 0-d int32
+    theta_d: torch.Tensor         # 0-d f32, this round's ratios
+    theta_u: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Trees: nested dicts of tensors (an int8 leaf is a {"q", "s"} dict)
+# ---------------------------------------------------------------------------
+
+def _is_qleaf(x) -> bool:
+    return isinstance(x, dict) and set(x) == {"q", "s"}
+
+
+def tree_map(fn: Callable, tree, *rest, is_leaf=None):
+    """``fn`` over the leaves of nested dicts (sorted keys, as the
+    reference's pytrees), with matching ``rest`` trees."""
+    if isinstance(tree, dict) and not (is_leaf and is_leaf(tree)):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest),
+                            is_leaf=is_leaf) for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
+def _paths(tree, prefix=()) -> list:
+    """Key paths of the leaves of nested dicts, in sorted-key order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k],
+                                                        prefix + (k,))]
+    return [prefix]
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def tree_leaves(tree) -> list:
+    return [_get(tree, p) for p in _paths(tree)]
+
+
+def _set(tree: dict, path, value):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _pop(tree: dict, path):
+    """Remove and return a leaf (so its memory can go as soon as the caller
+    drops it)."""
+    for k in path[:-1]:
+        tree = tree[k]
+    return tree.pop(path[-1])
+
+
+def _quantize_leaf(a: torch.Tensor) -> dict:
+    af = a.to(torch.float32)
+    scale = torch.amax(torch.abs(af)) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(af / scale), -127, 127)
+    return {"q": q.to(torch.int8), "s": scale.to(torch.float32)}
+
+
+def _dequantize_leaf(d: dict, dtype) -> torch.Tensor:
+    return (d["q"].to(torch.float32) * d["s"]).to(dtype)
+
+
+def quantize_tree(tree):
+    return tree_map(_quantize_leaf, tree)
+
+
+def dequantize_tree(qtree, like):
+    return tree_map(lambda d, lk: _dequantize_leaf(d, lk.dtype), qtree,
+                    like, is_leaf=_is_qleaf)
+
+
+def _scalar(x, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=dtype).to(device)
+
+
+def init_state(params, dcfg: DistConfig, mesh=None) -> TrainState:
+    """The cohort state of one pod: stale model = the params (or their int8
+    form), residuals zero, each with a leading [1] pod axis."""
+    _no_mesh(mesh)
+    dev = tree_leaves(params)[0].device
+    if dcfg.simulate_download:
+        prev = quantize_tree(params) if dcfg.prev_int8 else params
+        prev = tree_map(lambda a: a[None].clone(), prev)
+    else:
+        prev = None
+    return TrainState(
+        params=params,
+        prev_params=prev,
+        ef=(tree_map(lambda a: torch.zeros((1,) + tuple(a.shape),
+                                           dtype=a.dtype, device=a.device),
+                     params) if dcfg.use_error_feedback else None),
+        step=torch.zeros((), dtype=torch.int32, device=dev),
+        theta_d=_scalar(dcfg.theta_d, torch.float32, dev),
+        theta_u=_scalar(dcfg.theta_u, torch.float32, dev),
+    )
+
+
+def _to_tensor_tree(tree, dev):
+    if tree is None:
+        return None
+    return tree_map(lambda a: M._to_tensor(a, dev), tree)
+
+
+def state_from_reference(state, device="cuda") -> TrainState:
+    """A reference ``TrainState`` (numpy or jax leaves, e.g. restored from
+    its checkpoint) as the port's, leaf for leaf in the same dtypes."""
+    dev = M.resolve_device(device)
+    return TrainState(
+        params=_to_tensor_tree(state.params, dev),
+        prev_params=_to_tensor_tree(state.prev_params, dev),
+        ef=_to_tensor_tree(state.ef, dev),
+        step=M._to_tensor(np.asarray(state.step, np.int32), dev),
+        theta_d=M._to_tensor(np.asarray(state.theta_d, np.float32), dev),
+        theta_u=M._to_tensor(np.asarray(state.theta_u, np.float32), dev))
+
+
+# ---------------------------------------------------------------------------
+# Per-leaf compression through the Track-A fused operators
+# ---------------------------------------------------------------------------
+
+def _leaf_hybrid_roundtrip(x, local, ratio):
+    rec, _ = C.fused_hybrid_roundtrip(x, local, ratio)
+    return rec.to(local.dtype)
+
+
+def _leaf_upload(d, e, ratio, wire_dtype=None):
+    """(wire-format sparse delta, new residual or None) of one leaf. With a
+    residual, EF sees exactly what the wire carries: the top-k loss AND the
+    wire cast's rounding."""
+    corrected = d if e is None else d + e.to(d.dtype)
+    sparse, _ = C.fused_topk(corrected, ratio)
+    wire = sparse.to(wire_dtype) if wire_dtype is not None else sparse
+    if e is None:
+        return wire, None
+    return wire, (corrected - wire.to(corrected.dtype)).to(corrected.dtype)
+
+
+def tree_download_recover(params, prev, ratio):
+    return tree_map(lambda g, lk: _leaf_hybrid_roundtrip(g, lk, ratio),
+                    params, prev)
+
+
+def tree_upload_compress(delta, ef, ratio, wire_dtype=None):
+    """Returns (sparse_delta_in_wire_format, new_ef). ``wire_dtype`` (bf16
+    for ``compressed_collective``) is applied BEFORE the error-feedback
+    residual is computed, so EF corrects the wire cast's rounding too."""
+    if ef is None:
+        ef = tree_map(lambda _: None, delta)
+    out = tree_map(lambda d, e: _leaf_upload(d, e, ratio, wire_dtype),
+                   delta, ef)
+    wire = tree_map(lambda o: o[0], out)
+    new_ef = tree_map(lambda o: o[1], out)
+    return wire, (None if tree_leaves(new_ef)[0] is None else new_ef)
+
+
+# ---------------------------------------------------------------------------
+# One cohort round and the train step
+# ---------------------------------------------------------------------------
+
+def _sgd_steps(w_init, batch, cfg: ModelConfig, dcfg: DistConfig, device):
+    """τ local SGD steps over microbatch slices of ``batch``; each update
+    ``(p − lr·g)`` is cast to the param dtype. Returns (w_fin, [τ] losses)."""
+    tau = max(cfg.local_iters, 1)
+    paths = _paths(w_init)
+    p = w_init
+    losses = []
+    for i in range(tau):
+        mb = {k: v[i * (v.shape[0] // tau):(i + 1) * (v.shape[0] // tau)]
+              for k, v in batch.items()}
+        leaves = [_get(p, q).detach().requires_grad_(True) for q in paths]
+        tree: dict = {}
+        for q, leaf in zip(paths, leaves):
+            _set(tree, q, leaf)
+        with torch.enable_grad():
+            loss = M.loss_fn(tree, mb, cfg, device)
+            grads = torch.autograd.grad(loss, leaves)
+        del tree
+        newp: dict = {}
+        for q, a, g in zip(paths, leaves, grads):
+            _set(newp, q, (a.detach() - dcfg.local_lr * g).to(a.dtype))
+        del leaves, grads
+        p = newp
+        losses.append(loss.detach())
+    return p, torch.stack(losses)
+
+
+def _cohort_round(params, prev, ef, batch, theta_d, theta_u,
+                  cfg: ModelConfig, dcfg: DistConfig, device):
+    """(sparse upload, new stale model, new residual, mean loss) of one
+    pod, leaves without the pod axis."""
+    # (1) download: recover a precise initial model from the stale copy
+    if dcfg.simulate_download and prev is not None:
+        local_ref = (dequantize_tree(prev, params) if dcfg.prev_int8
+                     else prev)
+        w_init = tree_download_recover(params, local_ref, theta_d)
+        del local_ref
+    else:
+        w_init = params
+    # (2) τ local SGD steps
+    w_fin, losses = _sgd_steps(w_init, batch, cfg, dcfg, device)
+    # (3) local delta in the model dtype, (4) top-k upload (+EF), leaf by
+    # leaf so the recovered download and each delta go as soon as used
+    wire_dtype = torch.bfloat16 if dcfg.compressed_collective else None
+    own = w_init is not params
+    sparse: dict = {}
+    new_ef: Optional[dict] = {} if ef is not None else None
+    for q in _paths(w_fin):
+        a = _pop(w_init, q) if own else _get(w_init, q)
+        b = _get(w_fin, q)
+        d = (a - b).to(a.dtype)
+        wire, e = _leaf_upload(d, None if ef is None else _get(ef, q),
+                               theta_u, wire_dtype)
+        del a, d
+        _set(sparse, q, wire)
+        if new_ef is not None:
+            _set(new_ef, q, e)
+    new_prev = quantize_tree(w_fin) if dcfg.prev_int8 else w_fin
+    return sparse, new_prev, new_ef, torch.mean(losses)
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "Track B over a mesh (pods on a 'pod' axis, sharded params) is "
+            "not ported to repro_torch yet (ROADMAP queue 1 item 13); pass "
+            "mesh=None")
+
+
+def make_train_step(cfg: ModelConfig, dcfg: DistConfig, mesh=None,
+                    device="cuda"):
+    """Builds ``train_step(state, batch) -> (new_state, {"loss"})``: one
+    Caesar round of the single pod on ``device`` (default the card; it
+    raises without one)."""
+    _no_mesh(mesh)
+    dev = M.resolve_device(device)
+
+    def train_step(state: TrainState, batch):
+        sq = (lambda t: None if t is None
+              else tree_map(lambda a: a[0], t))
+        sparse, w_fin, new_ef, loss = _cohort_round(
+            state.params, sq(state.prev_params), sq(state.ef), batch,
+            state.theta_d, state.theta_u, cfg, dcfg, dev)
+        ex = (lambda t: None if t is None
+              else tree_map(lambda a: a[None], t))
+        # (5) server update in f32, cast back to the param dtype
+        new_params: dict = {}
+        for q in _paths(state.params):
+            p = _get(state.params, q)
+            d = _pop(sparse, q)
+            _set(new_params, q, (p.to(torch.float32) - dcfg.server_lr
+                                 * d.to(torch.float32)).to(p.dtype))
+            del d
+        new_state = TrainState(
+            params=new_params,
+            prev_params=ex(w_fin) if dcfg.simulate_download else None,
+            ef=ex(new_ef),
+            step=state.step + 1,
+            theta_d=state.theta_d, theta_u=state.theta_u)
+        return new_state, {"loss": loss}
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Serving steps (no Caesar on the serving path)
+# ---------------------------------------------------------------------------
+
+def make_serve_step(cfg: ModelConfig, mesh=None, device="cuda"):
+    _no_mesh(mesh)
+
+    def serve_step(params, cache, tokens, length):
+        return M.decode_step(params, cache, {"tokens": tokens}, length, cfg,
+                             device)
+    return serve_step
+
+
+def make_prefill(cfg: ModelConfig, mesh=None, device="cuda"):
+    _no_mesh(mesh)
+
+    def prefill_step(params, batch):
+        return M.prefill(params, batch, cfg, device)
+    return prefill_step

@@ -35,9 +35,17 @@ it, or builds the masks of the masked engine. Every round draws from its own
 same in both paths, so pipelined and synchronous runs consume identical
 randomness. The worker never touches the state store.
 
-Configurations outside the port so far (a capped pool with eviction,
-sharding) raise ``NotImplementedError`` naming their ROADMAP item; none is
-silently ignored.
+Checkpoint/resume: `Simulator.state_dict` after a run is a tree of numpy
+arrays and Python scalars (global model, the client-state store with its
+eviction metadata and offloaded rows, the planner's state, the accounting
+counters and the wire state — deferred uploads, ``fault_log``,
+``avail_log`` and the participation record) that
+`repro_torch.checkpoint.manager.CheckpointManager` saves; a fresh simulator
+of the same config takes it through `load_state_dict` and
+``run(start_round=t_done + 1)`` replays the tail bit for bit.
+
+Sharding (``sharded``, ``multi_host``) raises ``NotImplementedError``
+naming ROADMAP queue 1 item 13; no configuration is silently ignored.
 """
 from __future__ import annotations
 
@@ -58,6 +66,7 @@ from repro_torch.fl import availability as AV
 from repro_torch.fl import baselines as BL
 from repro_torch.fl import faults as F
 from repro_torch.fl import robust as RB
+from repro_torch.fl import state as ST
 from repro_torch.fl import wire as W
 from repro_torch.fl.capability import CapabilityModel
 from repro_torch.fl.executor import RoundExecutor, TierGroup
@@ -125,8 +134,20 @@ class SimConfig:
     # multi-Krum selection size m (None ⇒ cohort − f − 2)
     krum_f: Optional[int] = None
     krum_m: Optional[int] = None
+    # client-state pool sizing: None ⇒ grow on demand (no eviction); 0 ⇒
+    # dense [n_clients] pool; int > 0 ⇒ hard row cap with staleness-tiered
+    # LRU eviction onto volume-weighted centroids (must cover the cohort)
+    state_capacity: Optional[int] = None
+    # what eviction does with the exact row: "none" keeps only the tier
+    # centroid; "host" / "memmap" also spill the exact row (numpy / a file
+    # on disk), so re-activation is exact paging
+    state_offload: str = "none"
+    # directory for "memmap" spill files (default: a fresh temp dir)
+    state_dir: Optional[str] = None
+    # record ||restored − true|| / ||true|| at every centroid restore
+    # (executor.telemetry()["restore_error"])
+    measure_eviction_error: bool = False
     # --- not ported yet: non-default values raise NotImplementedError
-    state_capacity: Optional[int] = None  # >0 eviction: ROADMAP 1 item 10
     sharded: bool = False                # ROADMAP 1 item 13
     multi_host: bool = False             # ROADMAP 1 item 13
 
@@ -140,8 +161,9 @@ def _check_slice(cfg: SimConfig) -> None:
     if cfg.scheme != "caesar" and cfg.scheme not in BL.POLICIES:
         raise ValueError(f"unknown scheme {cfg.scheme!r}; want caesar or "
                          f"one of {sorted(BL.POLICIES)}")
-    if cfg.state_capacity not in (None, 0):
-        nope("a capped state pool with eviction/offload", 10)
+    if cfg.state_offload not in ST.STATE_OFFLOADS:
+        raise ValueError(f"unknown state_offload {cfg.state_offload!r}; "
+                         f"want one of {ST.STATE_OFFLOADS}")
     if cfg.sharded or cfg.multi_host:
         nope("sharded / multi_host execution", 13)
     if cfg.wire not in ("inproc", "loopback", "queue"):
@@ -318,6 +340,7 @@ class Simulator:
         # one dict per round: eligibility counts + participant staleness
         self.avail_log: list = []
         self._last_part = np.zeros(cfg.n_clients, np.int64)
+        self._t_done = 0
         ne = min(cfg.eval_samples, len(self.data.y_test))
         self._eval_x = torch.from_numpy(self.data.x_test[:ne]).to(self.device)
         self._eval_y = torch.from_numpy(
@@ -348,11 +371,14 @@ class Simulator:
         return BL.POLICIES[name]()
 
     def _make_store(self) -> ClientStateStore:
-        return ClientStateStore(self.cfg.n_clients, self.n_params, self.flat0,
-                                capacity=self.cfg.state_capacity,
-                                cohort=self.n_part, device=self.device,
-                                ef_width=self.executor.ef_width,
-                                dtype=self.executor.buf_dtype)
+        cfg = self.cfg
+        return ClientStateStore(
+            cfg.n_clients, self.n_params, self.flat0,
+            capacity=cfg.state_capacity, cohort=self.n_part,
+            device=self.device, ef_width=self.executor.ef_width,
+            dtype=self.executor.buf_dtype, offload=cfg.state_offload,
+            offload_dir=cfg.state_dir, volumes=self.volumes,
+            measure_restore_error=cfg.measure_eviction_error)
 
     def _eval(self, flat: torch.Tensor, x: torch.Tensor,
               y: torch.Tensor) -> torch.Tensor:
@@ -723,23 +749,43 @@ class Simulator:
         return self.flat0.to(self.device, copy=True)
 
     # ------------------------------------------------------------------
-    def run(self, log: Callable[[str], None] = lambda s: None) -> History:
-        """Simulate rounds 1..cfg.rounds from a fresh pool."""
+    def run(self, log: Callable[[str], None] = lambda s: None,
+            start_round: int = 1) -> History:
+        """Simulate rounds [start_round, cfg.rounds]; 1 starts from a fresh
+        pool. ``start_round > 1`` continues a checkpoint installed by
+        `load_state_dict` (store, planner, global model, accounting and
+        wire state); every per-round draw — sampling, stochastic rounding,
+        faults, availability — is keyed by (seed, kind, t), so the tail
+        replays the rounds the uninterrupted run simulated."""
         cfg = self.cfg
         q_bits = float(self.model_bits)
         hist = History()
         ccfg = cfg.caesar
-        global_f = self._init_global()
-        store = self.store = self._make_store()
-        cum_time, cum_bits, waiting_sum, wire_bits_cum = 0.0, 0.0, 0.0, 0.0
         # one dict per round: participants, plan and payload bits (host
         # arrays) — the record parity checks compare across devices and
         # against the reference
         self.round_log = []
-        self._deferred = []
-        self.fault_log = []
-        self.avail_log = []
-        self._last_part = np.zeros(cfg.n_clients, np.int64)
+        if start_round > 1:
+            rs = getattr(self, "_resume", None)
+            if rs is None or rs["t_done"] != start_round - 1:
+                raise ValueError(
+                    f"start_round={start_round} needs a checkpoint of "
+                    f"{start_round - 1} completed rounds loaded via "
+                    "load_state_dict")
+            global_f = torch.from_numpy(rs["global_flat"].copy()).to(
+                self.device)
+            store = self.store
+            cum_time, cum_bits, waiting_sum = rs["acct"]
+            wire_bits_cum = rs["wire_bits"]
+        else:
+            global_f = self._init_global()
+            store = self.store = self._make_store()
+            cum_time, cum_bits, waiting_sum = 0.0, 0.0, 0.0
+            wire_bits_cum = 0.0
+            self._deferred = []
+            self.fault_log = []
+            self.avail_log = []
+            self._last_part = np.zeros(cfg.n_clients, np.int64)
         self._transport = (W.make_transport(cfg.wire) if self._wire_on
                            else None)
         # double-buffered producer: the worker fills round t+1's package
@@ -753,8 +799,8 @@ class Simulator:
             return self._prefetch_pkg(t, bufs[t % n_bufs])
 
         try:
-            pending = pool.submit(prefetch, 1) if pool else None
-            for t in range(1, cfg.rounds + 1):
+            pending = pool.submit(prefetch, start_round) if pool else None
+            for t in range(start_round, cfg.rounds + 1):
                 wall0 = time.perf_counter()
                 if pool:
                     pkg = pending.result()
@@ -836,6 +882,7 @@ class Simulator:
                 waiting = float(np.mean(np.maximum(close - times, 0.0)))
                 waiting_sum += waiting
                 wire_bits_cum += wire_bytes * 8.0
+                self._t_done = t
                 hist.waiting_per_round.append(waiting)
                 hist.wall_per_round.append(time.perf_counter() - wall0)
                 if t == 1:
@@ -870,15 +917,67 @@ class Simulator:
         self._wire_bits_cum = wire_bits_cum
         return hist
 
+    # ------------------------------------------------------------------
+    # Checkpoint / resume: everything the resumed tail needs to replay bit
+    # for bit. The fault and availability schedules need no state: they
+    # are pure functions of (seed, kind, t).
+    # ------------------------------------------------------------------
+
     def state_dict(self) -> dict:
-        raise NotImplementedError(
-            "checkpoint/resume is not ported to repro_torch yet (ROADMAP "
-            "queue 1 item 10)")
+        """Portable (numpy and Python scalars) checkpoint after `run`
+        simulated ``self._t_done`` rounds — the reference's keys. Feed it to
+        a FRESH Simulator of the same config via `load_state_dict`, then
+        `run(start_round=t_done + 1)`."""
+        cs = self.planner.caesar_state
+        return {
+            "t_done": int(self._t_done),
+            "global_flat": self.global_flat.detach().cpu().numpy().copy(),
+            "store": self.store.state_dict(),
+            "caesar_leaves": [getattr(cs, f.name).numpy().copy()
+                              for f in dataclasses.fields(cs)],
+            "grad_norms": self.planner.grad_norms.copy(),
+            "acct": tuple(getattr(self, "_acct", (0.0, 0.0, 0.0))),
+            "wire_bits": float(getattr(self, "_wire_bits_cum", 0.0)),
+            "deferred": [(int(cl), int(u.round), u.indices.copy(),
+                          u.values.copy()) for cl, u in self._deferred],
+            "fault_log": [dict(e) for e in self.fault_log],
+            "last_part": self._last_part.copy(),
+            "avail_log": [dict(e) for e in self.avail_log],
+        }
 
     def load_state_dict(self, d: dict) -> None:
-        raise NotImplementedError(
-            "checkpoint/resume is not ported to repro_torch yet (ROADMAP "
-            "queue 1 item 10)")
+        """Install a `state_dict` checkpoint (also one restored through
+        `CheckpointManager`, whose scalars come back as 0-d arrays): a new
+        store from `_make_store` takes the store's state, the planner its
+        state, and `run(start_round=t_done + 1)` is armed."""
+        cs = self.planner.caesar_state
+        self.planner.caesar_state = dataclasses.replace(cs, **{
+            f.name: torch.from_numpy(np.array(x)).to(getattr(cs, f.name).dtype)
+            for f, x in zip(dataclasses.fields(cs), d["caesar_leaves"])})
+        self.planner.grad_norms = np.array(d["grad_norms"], np.float64)
+        store = self._make_store()
+        store.load_state_dict(d["store"])
+        self.store = store
+        self.global_flat = torch.from_numpy(
+            np.array(d["global_flat"], np.float32)).to(self.device)
+        self._deferred = [
+            (int(cl), W.WireUpload(client=int(cl), round=int(r),
+                                   n_params=self.n_params,
+                                   indices=np.asarray(ix, np.int32),
+                                   values=np.asarray(v, np.float32)))
+            for cl, r, ix, v in d["deferred"]]
+        self.fault_log = [_host_scalars(e) for e in d["fault_log"]]
+        self._last_part = np.array(
+            d.get("last_part", np.zeros(self.cfg.n_clients)), np.int64)
+        self.avail_log = [_host_scalars(e) for e in d.get("avail_log", [])]
+        self._t_done = int(d["t_done"])
+        self._acct = tuple(float(x) for x in d["acct"])
+        self._wire_bits_cum = float(d["wire_bits"])
+        self._resume = {"t_done": self._t_done,
+                        "global_flat": np.array(d["global_flat"],
+                                                np.float32),
+                        "acct": self._acct,
+                        "wire_bits": self._wire_bits_cum}
 
     def reset(self):
         """Reset planner state so `run` can be repeated on the SAME
@@ -890,3 +989,13 @@ class Simulator:
         """Final global model as {name: view} (unflatten at the boundary)."""
         flat = getattr(self, "global_flat", self.flat0)
         return C.unflatten_vector(flat, self.spec)
+
+
+def _host_scalars(entry):
+    """A log entry with 0-d arrays (what a checkpoint restores Python
+    scalars as) turned back into Python scalars, recursively."""
+    if isinstance(entry, dict):
+        return {k: _host_scalars(v) for k, v in entry.items()}
+    if isinstance(entry, np.ndarray) and entry.ndim == 0:
+        return entry.item()
+    return entry

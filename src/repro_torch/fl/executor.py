@@ -125,6 +125,9 @@ class RoundExecutor:
         self.work_cap = 0
         self.chunk_calls = 0
         self.rounds = 0
+        # the store of the latest step, whose eviction-error telemetry
+        # `telemetry` surfaces
+        self._last_store = None
 
     # -- tier shape lattice -------------------------------------------------
 
@@ -171,14 +174,21 @@ class RoundExecutor:
     def telemetry(self) -> dict:
         occ = {f"b{b}xt{t}": int(n)
                for (b, t), n in sorted(self.tier_occupancy.items())}
-        return {"tier_occupancy": occ,
-                "compiled_tier_shapes": len(self._shapes_seen),
-                "shape_lattice_bound": self.shape_lattice_bound(),
-                "work_fraction": (self.work_ragged / self.work_cap
-                                  if self.work_cap else 1.0),
-                "chunk_calls": self.chunk_calls,
-                "rounds": self.rounds,
-                "kernel_launches": self.kernel_launches()}
+        out = {"tier_occupancy": occ,
+               "compiled_tier_shapes": len(self._shapes_seen),
+               "shape_lattice_bound": self.shape_lattice_bound(),
+               "work_fraction": (self.work_ragged / self.work_cap
+                                 if self.work_cap else 1.0),
+               "chunk_calls": self.chunk_calls,
+               "rounds": self.rounds,
+               "kernel_launches": self.kernel_launches()}
+        # eviction-error telemetry is measured where the restores happen:
+        # surface the store's numbers beside the executor's
+        if self._last_store is not None:
+            err = self._last_store.telemetry().get("restore_error")
+            if err is not None:
+                out["restore_error"] = err
+        return out
 
     # -- the per-participant round, batched over a chunk --------------------
 
@@ -387,6 +397,7 @@ class RoundExecutor:
         caller's ``parts`` order; the updated rows land in ``store.pool``."""
         n = len(parts)
         slots32 = store.prepare(np.asarray(parts), t)
+        self._last_store = store
         up_sum = torch.zeros(self.spec.n_params, dtype=torch.float32,
                              device=self.device)
         lr = lr.to(self.device)
@@ -419,6 +430,7 @@ class RoundExecutor:
         wm = (np.ones(n, np.float32) if wmask is None
               else np.asarray(wmask, np.float32))
         slots32 = store.prepare(np.asarray(parts), t)
+        self._last_store = store
         lr = lr.to(self.device)
         chunks, pend = [], []
         for pos_c, v, c, _pm, ups, outs in self._tier_stream(
@@ -437,6 +449,7 @@ class RoundExecutor:
         return contract as `step_ragged`."""
         n = len(parts)
         slots32 = store.prepare(np.asarray(parts), t)
+        self._last_store = store
         g_cdf, g_max = self._hist(global_f)
         up_sum = torch.zeros(self.spec.n_params, dtype=torch.float32,
                              device=self.device)

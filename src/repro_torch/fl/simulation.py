@@ -3,7 +3,8 @@ PyTorch — the public surface of the port's layered round engine, a facade
 over its sibling modules:
 
 * `repro_torch.fl.state` — `ClientStateStore`, the participation-keyed
-  client row pool (grow-on-demand or dense) on the simulator's device;
+  client row pool (grow-on-demand, dense, or capped with eviction and
+  host/memmap offload) on the simulator's device;
 * `repro_torch.fl.planner` — `RoundPlanner`, participant-scoped Eq. 8–9 /
   §4.1 Caesar planning, or a baseline policy's, on the CPU;
 * `repro_torch.fl.baselines` — the baseline policies (`POLICIES`: fedavg,

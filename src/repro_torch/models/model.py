@@ -6,6 +6,7 @@ Public API (functions of a params dict, as the reference's pytree):
     from_reference(params_numpy_pytree, cfg, device) -> params (a copy)
     init_cache(cfg, batch, seq, device)          -> cache
     forward(params, batch, cfg, device)          -> logits [B, S, V]
+    loss_fn(params, batch, cfg, device)          -> mean next-token CE
     prefill(params, batch, cfg, device)          -> last-position logits
     decode_step(params, cache, batch, length, cfg, device) -> (logits, cache)
     generate(params, cfg, prompt, new_tokens, device)      -> new tokens
@@ -20,8 +21,13 @@ identical math" of the reference's ``decode_attention_jnp``.
 Every entry point runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, and raises when there is no card; tensors on another
 device than the one named are refused. Families other than ``dense`` raise
-``NotImplementedError`` naming their ROADMAP item. Training (``loss_fn``)
-is not ported.
+``NotImplementedError`` naming their ROADMAP item.
+
+Training: `loss_fn` is the reference's next-token cross entropy; its
+gradients come from ``torch.autograd`` through `forward` (the train-path
+`layers.flash_attention` is plain torch, as in the reference, and
+differentiable). Track-B's cohort round (`repro_torch.fl.distributed`)
+trains through it.
 """
 from __future__ import annotations
 
@@ -146,9 +152,15 @@ def from_reference(params, cfg: ModelConfig, device="cuda") -> Params:
     return out
 
 
-def _layer(stacked: dict, i: int) -> dict:
-    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
-            for k, v in stacked.items()}
+def _unstack(stacked: dict, n: int) -> list:
+    """The stacked ``[L, ...]`` layer params as L per-layer dicts of views,
+    split with one ``unbind`` per leaf: its backward writes each stacked
+    gradient once, where indexing layer by layer (``v[i]``) gives every
+    layer's backward a zero-filled full-stack gradient to add up (L² work
+    over the stack in training)."""
+    parts = {k: (_unstack(v, n) if isinstance(v, dict)
+                 else torch.unbind(v, 0)) for k, v in stacked.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 # ===========================================================================
@@ -220,16 +232,20 @@ def _scan_layers(x, stacked, cfg, positions, caches=None, length=None):
     {"k", "v"} with a leading L axis, written in place."""
     n = stacked["ln1"].shape[0]
     rope = _rope(cfg, positions)
-    for i in range(n):
+    for i, lp in enumerate(_unstack(stacked, n)):
         cache = (None if caches is None else
                  {"k": caches["k"][i], "v": caches["v"][i]})
-        x, _ = _attn_ffn_layer(x, _layer(stacked, i), cfg, rope, cache,
-                               length)
+        x, _ = _attn_ffn_layer(x, lp, cfg, rope, cache, length)
     return x, caches
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """Rows of ``table`` for ``tokens``. ``F.embedding``, not ``table[tokens]``:
+    the same values, but its backward on the card sums repeated tokens in a
+    fixed order, where an indexed read's backward accumulates with atomics
+    in no fixed order (same-input training steps must repeat bit for
+    bit)."""
+    return torch.nn.functional.embedding(tokens.long(), table)
 
 
 def forward(params, batch, cfg: ModelConfig, device="cuda") -> torch.Tensor:
@@ -244,6 +260,30 @@ def forward(params, batch, cfg: ModelConfig, device="cuda") -> torch.Tensor:
     x, _ = _scan_layers(x, params["layers"], cfg, positions)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return torch.matmul(x, params["lm_head"])
+
+
+def loss_fn(params, batch, cfg: ModelConfig, device="cuda") -> torch.Tensor:
+    """Mean next-token cross entropy over the positions with ``labels >= 0``
+    (batch {"tokens", "labels": [B, S]}), as the reference's ``loss_fn``:
+    logits and labels shift by one, the row max is taken with its gradient
+    stopped, the shift stays in the model dtype, ``exp``/``log`` run in f32
+    and the label logit is read in f32. The label logit is a gather (the
+    reference contracts a one-hot, which only a sharded vocabulary needs;
+    the values and the gradient are the same); masked labels are clamped
+    to 0 for the gather and weigh 0."""
+    logits = forward(params, batch, cfg, device)
+    labels = batch["labels"].to(torch.int64)
+    logits = logits[:, :-1, :]              # next-token shift (dense AR)
+    labels = labels[:, 1:]
+    m = torch.amax(logits.detach(), dim=-1, keepdim=True)
+    shifted = logits - m                                       # model dtype
+    sumexp = torch.sum(torch.exp(shifted.to(torch.float32)), dim=-1)
+    lse = torch.log(sumexp) + m[..., 0].to(torch.float32)
+    lab_logit = torch.gather(logits, -1, labels.clamp(min=0)[..., None]
+                             )[..., 0].to(torch.float32)
+    ll = lab_logit - lse
+    mask = (labels >= 0).to(torch.float32)
+    return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def prefill(params, batch, cfg: ModelConfig, device="cuda") -> torch.Tensor:

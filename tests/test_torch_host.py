@@ -89,7 +89,11 @@ def test_capability_snapshots_byte_equal(seed):
                                     "repro_torch.fl.wire",
                                     "repro_torch.fl.faults",
                                     "repro_torch.fl.availability",
-                                    "repro_torch.fl.robust"])
+                                    "repro_torch.fl.robust",
+                                    "repro_torch.checkpoint.manager",
+                                    "repro_torch.fl.distributed",
+                                    "repro_torch.launch.train",
+                                    "repro_torch.launch.elastic"])
 def test_port_imports_neither_jax_nor_reference(module):
     code = (f"import sys; import {module}; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
@@ -116,14 +120,17 @@ _FAST = dict(dataset="har", n_clients=12, participation=0.25, rounds=1,
              data_scale=0.2, device="cpu")
 
 
-@pytest.mark.parametrize("override,item", [
-    (dict(state_capacity=8), "item 10"),
-    (dict(sharded=True), "item 13"),
-    (dict(multi_host=True), "item 13"),
+@pytest.mark.parametrize("override,exc,match", [
+    (dict(state_capacity=8, state_offload="bogus"), ValueError,
+     "state_offload"),
+    (dict(sharded=True), NotImplementedError, "item 13"),
+    (dict(multi_host=True), NotImplementedError, "item 13"),
 ])
-def test_out_of_slice_configs_raise(override, item):
+def test_out_of_slice_configs_raise(override, exc, match):
+    """Sharding (item 13) is not ported and names its item; an unknown
+    offload of the (ported) capped pool is refused."""
     cfg = dataclasses.replace(T_SIM.SimConfig(**_FAST), **override)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=match):
         T_SIM.Simulator(cfg)
 
 
@@ -147,8 +154,19 @@ def test_ported_modes_run_one_round(override):
 
 
 def test_state_dict_raises():
-    sim = T_SIM.Simulator(T_SIM.SimConfig(**_FAST))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sim.state_dict()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sim.load_state_dict({})
+    """state_dict → load_state_dict → run(start_round=) on a fresh
+    simulator resumes a capped run (what used to raise, item 10); a resume
+    without a loaded checkpoint raises."""
+    cfg = dataclasses.replace(T_SIM.SimConfig(**_FAST), rounds=2,
+                              caesar=T_CA.CaesarConfig(tau=2, b_max=8),
+                              state_capacity=4, state_offload="host")
+    straight = T_SIM.Simulator(cfg)
+    straight.run()
+    first = T_SIM.Simulator(dataclasses.replace(cfg, rounds=1))
+    first.run()
+    resumed = T_SIM.Simulator(cfg)
+    with pytest.raises(ValueError, match="load_state_dict"):
+        resumed.run(start_round=2)
+    resumed.load_state_dict(first.state_dict())
+    resumed.run(start_round=2)
+    assert torch.equal(resumed.global_flat, straight.global_flat)

@@ -1,6 +1,7 @@
 """repro_torch ClientStateStore against the reference store: the same
 participant sequence gives the same slot maps, capacity growth and resident
-rows, in grow-on-demand (capacity=None) and dense (capacity=0) mode.
+rows, in grow-on-demand (capacity=None) and dense (capacity=0) mode. The
+capped mode is held to the reference in tests/test_torch_state_store.py.
 """
 import numpy as np
 import pytest
@@ -47,6 +48,15 @@ def test_slot_maps_equal_reference(capacity, n_clients, cohort, seed):
 
 
 def test_capped_pool_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """A capped pool (ported since item 10) must hold the cohort: a cap
+    below it raises ValueError, as the reference's; one that holds it
+    builds at its cap."""
+    with pytest.raises(ValueError, match="cohort"):
         TS.ClientStateStore(10, N_PARAMS, torch.zeros(N_PARAMS), capacity=4,
-                            device="cpu")
+                            cohort=5, device="cpu")
+    with pytest.raises(ValueError, match="cohort"):
+        RS.ClientStateStore(10, N_PARAMS, np.zeros(N_PARAMS, np.float32),
+                            capacity=4, cohort=5)
+    st = TS.ClientStateStore(10, N_PARAMS, torch.zeros(N_PARAMS),
+                             capacity=4, cohort=4, device="cpu")
+    assert st.capacity == 4 and tuple(st.pool.shape) == (4, N_PARAMS)
