@@ -4,7 +4,10 @@ round on HAR (ragged, masked, error feedback with a bf16 pool), every
 scheme of the paper on its CIFAR-10 ResNet-18 at full width, the wire
 boundary (faults, robust aggregation) on ResNet-18, the capped client-state
 store with eviction and offload, checkpoint/resume of the simulator,
-serving Qwen1.5-4B at full width and Track-B training of it.
+serving Qwen1.5-4B at full width and Track-B training of it, and serving
+and Track-B training of the LM zoo's other families at their published
+widths (Mamba2, Zamba2, InternVL2, HuBERT, Llama-4-Scout and DeepSeek-V3,
+the last two cut in depth).
 
     python3 chip_smoke.py
 
@@ -33,8 +36,11 @@ Phases, each of which fails the script on any error:
    second, each checked exact, run twice bit-identical and timed;
 4. decode kernel: flash decode against its plain version at the serve
    shape (B=4, H=Hkv=20, D=128, S=48, bf16, every length 1..48), the
-   serve example's direct call (B=2, H=8, Hkv=4, D=64, S=2048, f32) and a
-   long cache at full width (S=4096, bf16), timed as in phase 3 beside the
+   serve example's direct call (B=2, H=8, Hkv=4, D=64, S=2048, f32), a
+   long cache at full width (S=4096, bf16) and the families' serve shapes
+   (S=48, bf16, every length): Llama-4-Scout H=40 over Hkv=8 (G = 5, in
+   blocks of 8 query heads), Zamba2's shared block H=Hkv=32 and InternVL2
+   H=16 over Hkv=8, timed as in phase 3 beside the
    bytes bound and torch's scaled_dot_product_attention with a length mask
    (a yardstick only; the port never calls it); one CUDA kernel per call.
    After phases 3 and 4 and the paths, the scratch the histogram,
@@ -100,12 +106,15 @@ Phases, each of which fails the script on any error:
    length 4000, timed and profiled for the decode kernel's share, with the
    kernel path's last-step logits against the plain path's;
 3c. kernels at the Track-B leaf widths (before any model is resident):
-   the histogram, compress and recover on one row of every leaf width of
-   Qwen1.5-4B — n = 707,788,800 (the stacked FFN weights), 388,956,160
-   (embedding, LM head), 262,144,000 (attention weights), 102,400 (stacked
-   norms and QKV biases) and 2,560 — and of the example's qwen-115m (phase
-   9), exact against the plain versions (Σ|x| within rtol 1e-5), one CUDA
-   kernel per call, timed as in phase 3;
+   the histogram, compress and recover on one row of every distinct leaf
+   width, read from the port's init_abstract, of the models phases 8, 9
+   and 10b train — Qwen1.5-4B (n = 707,788,800 the stacked FFN weights
+   down to 2,560), the example's qwen-115m, Mamba2, Zamba2, HuBERT,
+   InternVL2, Llama-4-Scout at depth 1 (up to 1,034,485,760, its
+   embedding) and DeepSeek-V3's smoke config — exact against the plain
+   versions (Σ|x| within rtol 1e-5); at Qwen's and the example's widths
+   and every width of at least 10^8 elements also one CUDA kernel per
+   call and timed as in phase 3;
 6d. capped store: the dense HAR point with state_capacity 640 (1.28× the
    cohort: every round after the first evicts) and host, then memmap
    offload, each bit-identical (global vector, History) to phase 6's
@@ -139,7 +148,32 @@ Phases, each of which fails the script on any error:
    falling, the histogram twice and compress and recover once per leaf
    and step at one row and at widths phase 3c checked, and a
    CheckpointManager checkpoint after step 10, restored into a fresh
-   state, whose steps 11–30 are bit-identical to the straight run.
+   state, whose steps 11–30 are bit-identical to the straight run;
+10. serve the families: Mamba2-780M, Zamba2-1.2B and InternVL2-2B (text
+   decode) at full size, Llama-4-Scout (depth 2) and DeepSeek-V3 (depth 2:
+   one dense and one MoE MLA layer) at full width, bf16, random weights
+   from a seeded generator, phase 7's shape through generate —
+   decode_attention launched once per attention application and step
+   (Llama-4 2, Zamba2's shared block 7, InternVL2 24; none for Mamba2 and
+   DeepSeek's absorbed MLA), a same-seed rerun and two teacher-forced
+   decodes bit-identical, the kernel path's logits against the plain
+   path's and decode's against the forward's at the same positions (for
+   a MoE: before each row's first token routed otherwise or dropped, and
+   again against a forward with room for every token) within rel L2
+   5e-2, or the model's bf16 noise floor where that is higher (its bf16
+   forward against the same forward with f32 weights); ms per step,
+   tokens/s, peak memory; a profiled window of Llama-4's decode;
+10b. train the families: Track B as phase 8 runs it (batch 8, τ 1, θ_u
+   0.35, θ_d max 0.6, EF), 3 steps each of Mamba2, Zamba2, HuBERT (audio
+   frames [8, 128, 512]) and InternVL2 (seq 384: 256 patches + 128 text
+   tokens) at full size and Llama-4-Scout at full width and depth 1 —
+   finite losses, the histogram twice and compress and recover once per
+   leaf and step at one row, every leaf width among phase 3c's, no
+   non-finite recovered download or upload; ms per step, tokens/s, peak
+   memory; one more Llama-4 step run twice from the same state,
+   bit-identical; one profiled Zamba2 step; then DeepSeek-V3's smoke
+   config cuda vs cpu for 3 steps (phase 9's bounds; its full width does
+   not fit one card).
 
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. It exits non-zero without a CUDA device
@@ -203,6 +237,7 @@ PROFILE_STEPS = 10               # decode steps in the serve profile window
 LONG_CACHE, LONG_START, LONG_STEPS = 4096, 4000, 10
 KERNEL_ONLY_CALLS = 10           # calls in each kernel_only_ms window
 PROFILE_ATTEMPTS = 5             # runs of a profiled window that records nothing
+LOST_EVENT_ATTEMPTS = 2          # runs of a kernel_only window short of a record
 PROFILE_PAD_S = 0.05             # host time around a profiled window's launches
 PROFILE_KEEP = 0.95              # share of a serve window's events kept
 
@@ -359,23 +394,37 @@ def _kernel_only(torch, flush, fn, calls: int = KERNEL_ONLY_CALLS) -> dict:
         for _ in range(calls):
             flush_op()
             fn()
+    # a window in which the profiler lost an event (a kernel seen fewer
+    # times than a whole number of calls) is profiled again; if it loses
+    # one again (at n = 637,534,208 on the H100 it lost one record in
+    # every window of 10 calls, of whichever kernel), a kernel's launches
+    # per call are its count over the calls rounded, and its time per
+    # call its time per recorded launch times those launches
+    for _ in range(LOST_EVENT_ATTEMPTS):
+        events = [ev for ev in _cuda_events(torch, window)
+                  if ev.key not in flush_keys]
+        lost = any(ev.count % calls for ev in events)
+        if not lost:
+            break
     by_name, total = {}, 0.0
-    for ev in _cuda_events(torch, window):
-        if ev.key in flush_keys:
-            continue
-        ms = ev.self_device_time_total / 1e3
-        total += ms
+    for ev in events:
+        per_launch = ev.self_device_time_total / 1e3 / ev.count
+        total += per_launch * max(1, round(ev.count / calls))
         by_name[ev.key] = {"launches_per_call": ev.count / calls,
-                           "ms_per_launch": ms / ev.count}
+                           "ms_per_launch": per_launch}
     check(bool(by_name), "the profiled window holds only the flush")
-    return {"kernel_only_ms": total / calls, "kernels": by_name}
+    return {"kernel_only_ms": total, "kernels": by_name,
+            "profiler_lost_events": lost}
 
 
 def _one_kernel(name: str, prof: dict) -> None:
     """A redesigned kernel's call is one CUDA kernel: no fill, memset or
-    second pass beside it."""
-    check(len(prof["kernels"]) == 1
-          and next(iter(prof["kernels"].values()))["launches_per_call"] == 1,
+    second pass beside it (launches per call rounded where the profiler
+    lost a record: a second kernel would show as a second name, or as
+    about 2 launches per call)."""
+    per = next(iter(prof["kernels"].values()))["launches_per_call"]
+    check(len(prof["kernels"]) == 1 and round(per) == 1
+          and (per == 1 or prof["profiler_lost_events"]),
           f"{name}: one call launched {prof['kernels']}, want one kernel")
 
 
@@ -390,14 +439,16 @@ def _scratch_zeroed(torch, build, after: str) -> None:
 
 
 def phase_kernels(torch, K, timer, n=N_PARAMS, rungs=RUNGS,
-                  hist_rows=(1, CHUNK), per_row_timed=()):
+                  hist_rows=(1, CHUNK), per_row_timed=(), timed=True):
     """Each compression kernel vs its plain version at a path's shapes:
     the histogram, compress and recover at every chunk rung in ``rungs``
     (the histogram timed at ``hist_rows``: the global model at 1 row, a
     chunk of upload deltas); at the rungs in ``per_row_timed`` compress is
     also timed on x per row at per-row thresholds (ProWD's upload) and run
     twice to show same-input calls bit-identical. Defaults: the dense HAR
-    point (n = 164,134, drawn on the CPU); wider n are drawn on the card."""
+    point (n = 164,134, drawn on the CPU); wider n are drawn on the card.
+    ``timed=False`` makes the same checks and times nothing (its results
+    hold the errors and bounds, and None for every time)."""
     from repro_torch.core import compression as C
     from repro_torch.kernels import hybrid_compress as HC
     from repro_torch.kernels import recover as RC
@@ -422,7 +473,13 @@ def phase_kernels(torch, K, timer, n=N_PARAMS, rungs=RUNGS,
         torch.cuda.synchronize()
         check(torch.equal(hk, hp), f"histogram rows={rows}: counts differ")
         check(int(hk.sum()) == rows * n, "histogram lost elements")
-        if rows in hist_rows:
+        if rows in hist_rows and not timed:
+            bms, by = _bound(rows * n * 4 + rows * 4 + rows * 256 * 4,
+                             2.0 * rows * n)
+            results[("magnitude_histogram", rows)] = dict(
+                max_abs_err=float((hk - hp).abs().max()), bound_ms=bms,
+                bound_by=by, **_UNTIMED)
+        elif rows in hist_rows:
             ms = timer.ms(lambda: TT.magnitude_histogram(x, mx))
             own = _kernel_only(torch, timer.flush,
                                lambda: TT.magnitude_histogram(x, mx))
@@ -494,22 +551,31 @@ def phase_kernels(torch, K, timer, n=N_PARAMS, rungs=RUNGS,
             check(torch.equal(rk, rp), f"recover after {what}: output "
                   "differs from the plain version")
             rec_err = max(rec_err, float((rk - rp).abs().max()))
+        bms, by = _bound(n * 4 + rows * 4 + rows * n * 5 + rows * 12,
+                         3.0 * rows * n)
+        if rows in per_row_timed:
+            results[("hybrid_compress_per_row", rows)] = _per_row_compress(
+                torch, timer, HC, C, x, timed)
+        rbms, rby = _bound(rows * n * 9 + rows * 8 + rows * n * 4,
+                           4.0 * rows * n)
+        if not timed:
+            results[("hybrid_compress", rows)] = dict(
+                max_abs_err=sum_err, bound_ms=bms, bound_by=by, **_UNTIMED)
+            results[("recover", rows)] = dict(
+                max_abs_err=rec_err, bound_ms=rbms, bound_by=rby,
+                **_UNTIMED)
+            continue
         ms = timer.ms(lambda: HC.hybrid_compress(g, thr))
         own = _kernel_only(torch, timer.flush,
                            lambda: HC.hybrid_compress(g, thr))
         _one_kernel(f"hybrid_compress rows={rows}", own)
         plain = timer.ms(lambda: HC.hybrid_compress_plain(g, thr))
-        bms, by = _bound(n * 4 + rows * 4 + rows * n * 5 + rows * 12,
-                         3.0 * rows * n)
         results[("hybrid_compress", rows)] = dict(
             max_abs_err=sum_err, ms=ms,
             kernel_only_ms=own["kernel_only_ms"], plain_ms=plain,
             library_ms=None, bound_ms=bms, bound_by=by,
             grid=HC.compress_plan(rows, n, _sm_count(torch)),
             profile=own["kernels"])
-        if rows in per_row_timed:
-            results[("hybrid_compress_per_row", rows)] = _per_row_compress(
-                torch, timer, HC, C, x)
 
         # recover timed on the shared compression's outputs (the loop's
         # last ones)
@@ -519,12 +585,10 @@ def phase_kernels(torch, K, timer, n=N_PARAMS, rungs=RUNGS,
         _one_kernel(f"recover rows={rows}", own)
         plain = timer.ms(lambda: RC.recover_plain(kept, sign, local, mean,
                                                   smax))
-        bms, by = _bound(rows * n * 9 + rows * 8 + rows * n * 4,
-                         4.0 * rows * n)
         results[("recover", rows)] = dict(
             max_abs_err=rec_err, ms=ms,
             kernel_only_ms=own["kernel_only_ms"], plain_ms=plain,
-            library_ms=None, bound_ms=bms, bound_by=by,
+            library_ms=None, bound_ms=rbms, bound_by=rby,
             grid=RC.recover_plan(rows, n, _sm_count(torch)),
             profile=own["kernels"])
     for (name, rows), r in sorted(results.items()):
@@ -532,11 +596,16 @@ def phase_kernels(torch, K, timer, n=N_PARAMS, rungs=RUNGS,
     return results
 
 
-def _per_row_compress(torch, timer, HC, C, x) -> dict:
+# the times of a kernel check made with timed=False
+_UNTIMED = dict(ms=None, kernel_only_ms=None, plain_ms=None, library_ms=None)
+
+
+def _per_row_compress(torch, timer, HC, C, x, timed=True) -> dict:
     """Compress on x per row at per-row thresholds from each row's own
     histogram, at upload ratios θ_u across [0.1, 0.6] (ProWD's upload):
     exact against the plain version (Σ|x| within SUM_RTOL), two calls
-    bit-identical, one CUDA kernel per call; timed as in phase 3."""
+    bit-identical, one CUDA kernel per call; timed as in phase 3 (with
+    ``timed``)."""
     rows, n = x.shape
     ratio = torch.linspace(0.1, 0.6, rows, device=x.device)
     thr = C.fused_threshold(x, ratio)
@@ -554,6 +623,11 @@ def _per_row_compress(torch, timer, HC, C, x) -> dict:
     err = (ck[3] - cp[3]).abs()
     check(bool((err <= SUM_RTOL * cp[3].abs() + 1e-30).all()),
           f"{what}: sum_abs outside rtol {SUM_RTOL}")
+    bms, by = _bound(rows * n * 4 + rows * 4 + rows * n * 5 + rows * 12,
+                     3.0 * rows * n)
+    if not timed:
+        return dict(max_abs_err=float(err.max()), bound_ms=bms, bound_by=by,
+                    count_max=int(ck[2].max()), **_UNTIMED)
     ms = timer.ms(lambda: HC.hybrid_compress(x, thr))
     own = _kernel_only(torch, timer.flush, lambda: HC.hybrid_compress(x, thr))
     _one_kernel(what, own)
@@ -566,8 +640,6 @@ def _per_row_compress(torch, timer, HC, C, x) -> dict:
         kept.fill_(0.0)
         sign.fill_(0)
     fill = _kernel_only(torch, timer.flush, fills)
-    bms, by = _bound(rows * n * 4 + rows * 4 + rows * n * 5 + rows * 12,
-                     3.0 * rows * n)
     return dict(max_abs_err=float(err.max()), ms=ms,
                 kernel_only_ms=own["kernel_only_ms"], plain_ms=plain,
                 library_ms=None, bound_ms=bms, bound_by=by,
@@ -597,6 +669,11 @@ DECODE_SHAPES = {
     "serve": (4, 20, 20, 128, 48, "bfloat16", None),
     "example": (2, 8, 4, 64, 2048, "float32", (2048, 1024)),
     "long": (4, 20, 20, 128, 4096, "bfloat16", None),
+    # the families' serve points (phase 10): G = 5 (blocks of 8 query
+    # heads, 3 idle), G = 1 (Zamba2's shared block), G = 2
+    "llama4": (4, 40, 8, 128, 48, "bfloat16", None),
+    "zamba2": (4, 32, 32, 128, 48, "bfloat16", None),
+    "internvl2": (4, 16, 8, 128, 48, "bfloat16", None),
 }
 
 
@@ -1722,7 +1799,7 @@ def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
-    else:
+    elif tree is not None:                 # None: an empty layer stack
         yield tree
 
 
@@ -1743,6 +1820,47 @@ TRAIN_STEPS = 5
 TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
               "8", "--seq", "128", "--tau", "1", "--theta-u", "0.35",
               "--theta-d-max", "0.6", "--error-feedback", "--seed", "0"]
+# the families (ROADMAP item 14), bf16 at their published widths: serve
+# points (arch, depth or None for the full depth) and train points (arch,
+# depth, seq). Llama-4-Scout (~218 GB) and DeepSeek-V3 are cut in depth
+# to fit one card; DeepSeek keeps one dense and one MoE MLA layer.
+DEEPSEEK_ARCH = "deepseek-v3-671b"
+FAMILY_SERVE = {
+    "serve_mamba2": ("mamba2-780m", None),
+    "serve_zamba2": ("zamba2-1.2b", None),
+    "serve_internvl2": ("internvl2-2b", None),
+    "serve_llama4": ("llama4-scout-17b-a16e", 2),
+    "serve_deepseek": (DEEPSEEK_ARCH, 2),
+}
+FAMILY_TRAIN = {
+    "train_mamba2": ("mamba2-780m", None, 128),
+    "train_zamba2": ("zamba2-1.2b", None, 128),
+    "train_hubert": ("hubert-xlarge", None, 128),
+    # 256 image patches + 128 text tokens: make_batch leaves seq − 256
+    "train_internvl2": ("internvl2-2b", None, 384),
+    "train_llama4": ("llama4-scout-17b-a16e", 1, 128),
+}
+# parameter counts, the reference's init_abstract at these depths
+FAMILY_PARAMS = {
+    "serve_mamba2": 857_219_328, "serve_zamba2": 1_245_814_912,
+    "serve_internvl2": 1_891_244_032, "serve_llama4": 6_473_180_160,
+    "serve_deepseek": 13_944_134_656, "train_mamba2": 857_219_328,
+    "train_zamba2": 1_245_814_912, "train_hubert": 1_260_360_960,
+    "train_internvl2": 1_891_244_032, "train_llama4": 4_271_078_400,
+}
+FAMILY_TRAIN_STEPS = 3
+# decode vs forward logits of a family, bf16: phase 7's bound, or the
+# model's own bf16 noise floor where that is higher (the bf16 forward's
+# distance from the same forward with its weights in f32, measured where
+# an f32 copy of the weights fits beside them). In f32 the two paths agree
+# to 1e-4 (tests/test_torch_families.py); at Mamba2-780M's 48 bf16 layers
+# the bf16 forward is 10.4% from the f32 one (H100)
+FAMILY_REL_L2 = SERVE_REL_L2
+F32_COPY_MAX_BYTES = 30 * 2**30
+PROFILED_SERVE, PROFILED_TRAIN = "serve_llama4", "train_zamba2"
+DEEPSEEK_PARITY_STEPS, DEEPSEEK_PARITY_BATCH, DEEPSEEK_PARITY_SEQ = 3, 4, 64
+# phase 3c times a width narrower than phases 8 and 9 use only from here
+TRACK_B_TIMED_MIN = 100_000_000
 # the example's size (qwen-115m, f32): cuda vs cpu steps, then the
 # learnable stream with a checkpoint
 EXAMPLE_PARITY_STEPS, EXAMPLE_PARITY_BATCH, EXAMPLE_PARITY_SEQ = 3, 4, 128
@@ -1758,35 +1876,47 @@ EXAMPLE_REL_L2 = 1e-5
 EXAMPLE_FLIP_CASCADE = 1000
 
 
-def _dense_leaf_sizes(cfg) -> list:
-    """numel of every parameter leaf of a dense config (with QKV bias):
-    embed, final_norm, lm_head, ln1, ln2, wq, wk, wv, wo, bq, bk, bv,
-    w_gate, w_up, w_down."""
-    n, d, f, v = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
-    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
-    sizes = [v * d, d, d * v, n * d, n * d, n * d * q, n * d * kv,
-             n * d * kv, n * q * d, n * f * d, n * d * f, n * f * d]
-    if cfg.qkv_bias:
-        sizes += [n * q, n * kv, n * kv]
-    return sizes
+def _leaf_sizes(cfg) -> list:
+    """numel of every parameter leaf of ``cfg``, from the port's
+    ``init_abstract`` (shapes only, no memory)."""
+    from repro_torch.fl import distributed as D
+    from repro_torch.models import model as M
+    return [x.numel() for x in D.tree_leaves(M.init_abstract(cfg))]
+
+
+def _track_b_configs() -> dict:
+    """Every model the Track-B phases train on the card: phase 8's
+    Qwen1.5-4B, phase 9's example, the families' train points and
+    DeepSeek-V3's smoke config (phase 10b)."""
+    import repro_torch.configs as configs
+    out = {TRAIN_ARCH: configs.get(TRAIN_ARCH),
+           "example": _load_example().config(),
+           "deepseek_smoke": configs.get(DEEPSEEK_ARCH).smoke()}
+    for name, (arch, layers, _) in FAMILY_TRAIN.items():
+        out[name] = _family_cfg(arch, layers)
+    return out
 
 
 def phase_track_b_kernels(torch, K, timer):
     """Phase 3c: the three compression kernels at every leaf width of the
-    Track-B steps of phases 8 and 9 (Qwen1.5-4B and the example's
-    qwen-115m; one row of the whole leaf), before any model is resident:
-    exact against the plain versions (Σ|x| within SUM_RTOL), one CUDA
-    kernel per call, timed as in phase 3 (compress also on x per row, the
-    train step's call)."""
-    import repro_torch.configs as configs
-    sizes = sorted(set(_dense_leaf_sizes(configs.get(TRAIN_ARCH)))
-                   | set(_dense_leaf_sizes(_load_example().config())),
+    Track-B steps of phases 8, 9 and 10b (`_track_b_configs`; one row of
+    the whole leaf), before any model is resident: exact against the plain
+    versions (Σ|x| within SUM_RTOL), and, at the widths of phases 8 and 9
+    and every width of at least TRACK_B_TIMED_MIN elements, one CUDA
+    kernel per call and timed as in phase 3 (compress also on x per row,
+    the train step's call). A narrower width is checked and not timed:
+    a profiled window costs about a second, and there are some forty."""
+    cfgs = _track_b_configs()
+    timed = set(_leaf_sizes(cfgs[TRAIN_ARCH])) | set(
+        _leaf_sizes(cfgs["example"]))
+    sizes = sorted({n for c in cfgs.values() for n in _leaf_sizes(c)},
                    reverse=True)
     out = {}
     for n in sizes:
         check(n < 2 ** 31, f"leaf of {n} elements: the compressed set's "
               "int32 count would overflow")
-        out[n] = phase_kernels(torch, K, timer, n, (1,), (1,), (1,))
+        out[n] = phase_kernels(torch, K, timer, n, (1,), (1,), (1,),
+                               timed=n in timed or n >= TRACK_B_TIMED_MIN)
         torch.cuda.empty_cache()
     return sizes, out
 
@@ -2077,7 +2207,7 @@ def phase_train(torch, K, checked_sizes):
           "the train phase must run the published width in bf16")
     sizes = [x.numel() for x in D.tree_leaves(state.params)]
     n_params = sum(sizes)
-    check(sorted(sizes) == sorted(_dense_leaf_sizes(cfg)),
+    check(sorted(sizes) == sorted(_leaf_sizes(cfg)),
           "the model's leaves are not the ones phase 3c sized")
     check(set(sizes) <= set(checked_sizes), "a leaf width was not checked "
           "in phase 3c")
@@ -2103,7 +2233,7 @@ def phase_train(torch, K, checked_sizes):
     # the same stream
     from repro_torch.core import rng as RNG
     batch = train.make_batch(RNG.stream(1, RNG.KIND_DATASET), cfg,
-                             args.batch, args.seq, "cuda")
+                             args.batch, args.seq, torch.device("cuda"))
     step_fn = res["step_fn"]
     del res
     box = {"state": state}
@@ -2185,23 +2315,29 @@ class _CallMasks:
 
 def _example_parity(torch, ex, D, M, C, RNG):
     """cuda vs cpu for EXAMPLE_PARITY_STEPS steps of the example's model
-    from one initial state and batches: loss within EXAMPLE_LOSS_RTOL and
-    every parameter leaf within EXAMPLE_REL_L2 (the test of
-    fl/distributed.py's bounds) outside the elements whose selection
-    flipped so far, counted from the sign and drop masks (phase 5's rule;
-    past EXAMPLE_FLIP_CASCADE flips the steps are reported, not
-    gated)."""
+    (`_cuda_cpu_parity`)."""
     cfg = ex.config()
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     rng = RNG.stream(0, RNG.KIND_DATASET)
     batches = [ex.batch_at(rng, t, EXAMPLE_PARITY_BATCH, EXAMPLE_PARITY_SEQ,
                            cfg.vocab, "cpu")
                for t in range(EXAMPLE_PARITY_STEPS)]
+    return _cuda_cpu_parity(torch, D, C, cfg, ex.DIST, params, batches,
+                            "example")
+
+
+def _cuda_cpu_parity(torch, D, C, cfg, dcfg, params, batches, what):
+    """cuda vs cpu for one train step per batch from one initial state
+    (``params``, on the cpu): loss within EXAMPLE_LOSS_RTOL and every
+    parameter leaf within EXAMPLE_REL_L2 (the test of fl/distributed.py's
+    bounds) outside the elements whose selection flipped so far, counted
+    from the sign and drop masks (phase 5's rule; past
+    EXAMPLE_FLIP_CASCADE flips the steps are reported, not gated)."""
     runs = {}
     for dev in ("cuda", "cpu"):
         p = D.tree_map(lambda a: a.to(dev, copy=True), params)
-        state = D.init_state(p, ex.DIST)
-        step = D.make_train_step(cfg, ex.DIST, device=dev)
+        state = D.init_state(p, dcfg)
+        step = D.make_train_step(cfg, dcfg, device=dev)
         losses, trees, masks = [], [], []
         for b in batches:
             with _CallMasks(C) as m:
@@ -2215,8 +2351,8 @@ def _example_parity(torch, ex, D, M, C, RNG):
         del state, step, p
     (lg, tg, mg), (lc, tc, mc) = runs["cuda"], runs["cpu"]
     steps, total = [], 0
-    for t in range(EXAMPLE_PARITY_STEPS):
-        check(len(mg[t]) == len(mc[t]), "the call streams differ")
+    for t in range(len(batches)):
+        check(len(mg[t]) == len(mc[t]), f"{what}: the call streams differ")
         flips = sum(int((a != b).sum()) for a, b in zip(mg[t], mc[t]))
         total += flips
         worst = 0.0
@@ -2234,9 +2370,9 @@ def _example_parity(torch, ex, D, M, C, RNG):
                       "max_leaf_rel_l2": worst, "loss_cuda": lg[t],
                       "loss_cpu": lc[t], "loss_rel": rl, "gated": gated})
         if gated:
-            check(rl <= EXAMPLE_LOSS_RTOL, f"example step {t}: loss "
+            check(rl <= EXAMPLE_LOSS_RTOL, f"{what} step {t}: loss "
                   f"{lg[t]} on the card vs {lc[t]} on the cpu")
-            check(worst <= EXAMPLE_REL_L2, f"example step {t}: a leaf is "
+            check(worst <= EXAMPLE_REL_L2, f"{what} step {t}: a leaf is "
                   f"{worst} apart outside {total} flipped elements")
     return steps
 
@@ -2295,7 +2431,7 @@ def phase_train_example(torch, K, checked_sizes):
     counts = K.launch_counts()
     by_rows = K.launch_counts_by_rows()
     sizes = [x.numel() for x in D.tree_leaves(state.params)]
-    check(sorted(sizes) == sorted(_dense_leaf_sizes(cfg)),
+    check(sorted(sizes) == sorted(_leaf_sizes(cfg)),
           "the example's leaves are not the ones phase 3c sized")
     check(set(sizes) <= set(checked_sizes), "an example leaf width was not "
           "checked in phase 3c")
@@ -2336,6 +2472,429 @@ def phase_train_example(torch, K, checked_sizes):
     del state, restored, batches, step
     shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The other families (ROADMAP item 14): serving and Track-B training
+# ---------------------------------------------------------------------------
+
+def _family_cfg(arch: str, layers):
+    """``arch``'s published config, its depth cut to ``layers`` if given
+    (one dense layer kept where the model has a dense prefix)."""
+    import repro_torch.configs as configs
+    cfg = configs.get(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers, n_dense_layers=min(
+            cfg.n_dense_layers, 1))
+    return cfg
+
+
+def _attention_apps(M, cfg) -> int:
+    """decode_attention launches of one decode step: one per GQA layer,
+    one per shared-block application of the hybrid, none for Mamba2 and
+    MLA (whose absorbed decode is plain torch)."""
+    if cfg.family == "ssm" or cfg.use_mla:
+        return 0
+    if cfg.family == "hybrid":
+        return len(M._hybrid_segments(cfg))
+    return cfg.n_layers
+
+
+def _routed(torch, MOE, fn):
+    """``fn()`` and the routes of its MoE calls (`moe.record_routes`)."""
+    MOE.record_routes = []
+    try:
+        out = fn()
+        return out, MOE.record_routes
+    finally:
+        MOE.record_routes = None
+
+
+def _decode_routes(torch, routes, n_moe: int, steps: int) -> list:
+    """Per MoE layer, the [B, steps, K] experts of a teacher-forced decode
+    (its calls go step by step, layer by layer)."""
+    return [torch.stack([routes[i * n_moe + layer][0]
+                         for i in range(steps)], dim=1)
+            for layer in range(n_moe)]
+
+
+def _same_route_prefix(torch, bad, steps: int) -> list:
+    """Per row, the positions before its first ``bad`` one ([B, steps]
+    bool): a token routed to other experts on the two paths, or dropped
+    to capacity on one. A causal position sees only earlier ones, so
+    those are the positions a routing difference cannot have reached."""
+    out = []
+    for row in bad.cpu():
+        hit = torch.nonzero(row)
+        out.append(int(hit[0, 0]) if len(hit) else steps)
+    return out
+
+
+def _rel_prefix(torch, a, b, clean) -> float:
+    """rel L2 of a [steps, B, V] decode against b (the same layout) over
+    each row's first clean[r] steps."""
+    return _rel_l2(torch, torch.cat([a[:c, r] for r, c in enumerate(clean)]),
+                   torch.cat([b[:c, r] for r, c in enumerate(clean)]))
+
+
+def _serve_family(torch, K, name, arch, layers) -> dict:
+    from repro_torch.core import rng as RNG
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+
+    cfg = _family_cfg(arch, layers)
+    check(cfg.dtype == "bfloat16", f"{name}: not bf16")
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in _leaves(params))
+    check(n_params == FAMILY_PARAMS[name], f"{name}: {n_params} parameters, "
+          f"want {FAMILY_PARAMS[name]} (the published width)")
+    b = SERVE_BATCH
+    prompt = torch.from_numpy(RNG.stream(0, RNG.KIND_DATASET).integers(
+        0, cfg.vocab, (b, SERVE_PROMPT))).to(dev, torch.int32)
+    steps = SERVE_PROMPT + SERVE_NEW - 1
+
+    # the serve path, counted
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = M.generate(params, cfg, prompt, SERVE_NEW)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    apps = _attention_apps(M, cfg)
+    check(counts["decode_attention"] == apps * steps,
+          f"{name}: decode_attention launched {counts['decode_attention']} "
+          f"times, want {apps} per step × {steps} steps")
+    check(all(n == 0 for k, n in counts.items() if k != "decode_attention"),
+          f"{name}: a compression kernel launched on the serve path")
+    check(tuple(out.shape) == (b, SERVE_NEW)
+          and bool(((out >= 0) & (out < cfg.vocab)).all()),
+          f"{name}: bad tokens")
+    # a warm same-seed rerun: latency, and the same tokens
+    t0 = time.perf_counter()
+    again = M.generate(params, cfg, prompt, SERVE_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(torch.equal(again, out), f"{name}: same-seed reruns differ")
+
+    # teacher-forced decode twice (bit for bit; no capacity drop at B
+    # tokens a step), then the plain decode_attention path, then forward
+    # over the same tokens (text only for the VLM), each with its routes
+    n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.family == "moe" else 0
+    seq = torch.cat([prompt, out], dim=1)
+    via_kernel, routes_k = _routed(torch, MOE, lambda: _teacher_forced(
+        torch, M, params, cfg, seq))
+    rerun = _teacher_forced(torch, M, params, cfg, seq)
+    check(torch.equal(via_kernel, rerun), f"{name}: two teacher-forced "
+          "decodes of the same tokens differ")
+    check(not any(bool(d.any()) for _, d in routes_k),
+          f"{name}: a decode step dropped a token to capacity")
+    check(bool(torch.isfinite(via_kernel).all()), f"{name}: non-finite "
+          "logits")
+    dec_ids = _decode_routes(torch, routes_k, n_moe, steps)
+    batch = {"tokens": seq[:, :steps]}
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.zeros((b, 0, cfg.frontend_dim), device=dev)
+    with torch.no_grad():
+        fwd, routes_f = _routed(torch, MOE, lambda: M.forward(
+            params, batch, cfg).float())
+    fwd = fwd.transpose(0, 1)                       # [steps, B, V]
+    # the bf16 noise floor: the same forward with the weights in f32
+    floor = None
+    if n_params * 4 <= F32_COPY_MAX_BYTES:
+        from repro_torch.fl import distributed as D
+        p32 = D.tree_map(lambda t: t.float(), params)
+        with torch.no_grad():
+            f32 = M.forward(p32, batch, dataclasses.replace(
+                cfg, dtype="float32")).float().transpose(0, 1)
+        del p32
+        floor = _rel_l2(torch, fwd, f32)
+        del f32
+        torch.cuda.empty_cache()
+    bound = max(FAMILY_REL_L2, floor or 0.0)
+    # decode vs forward, before each row's first token routed otherwise or
+    # dropped in the forward
+    bad = torch.zeros((b, steps), dtype=torch.bool, device=dev)
+    for layer, (ids, dropped) in enumerate(routes_f):
+        bad |= dropped.reshape(b, steps) | (ids.reshape(b, steps, -1)
+                                            != dec_ids[layer]).any(-1)
+    clean_f = _same_route_prefix(torch, bad, steps)
+    rel_fwd = _rel_prefix(torch, via_kernel, fwd, clean_f)
+    check(rel_fwd <= bound, f"{name}: decode vs forward logits rel L2 "
+          f"{rel_fwd:.3g} > {FAMILY_REL_L2} and > the bf16 forward's own "
+          f"distance from f32 ({floor}) over {sum(clean_f)} positions")
+    # at the published capacity a MoE forward drops most rows early (a
+    # top-8 of 256 experts over 188 tokens gives each expert 8 slots for
+    # ~5.9 tokens on average), so the forward is compared again with room
+    # for every token in every expert: it drops none, as decode does not
+    rel_ample, clean_a = None, None
+    if n_moe:
+        ample = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
+        with torch.no_grad():
+            fwd_a, routes_a = _routed(torch, MOE, lambda: M.forward(
+                params, batch, ample).float())
+        check(not any(bool(d.any()) for _, d in routes_a),
+              f"{name}: the forward with room for every token dropped one")
+        bad = torch.zeros((b, steps), dtype=torch.bool, device=dev)
+        for layer, (ids, _) in enumerate(routes_a):
+            bad |= (ids.reshape(b, steps, -1) != dec_ids[layer]).any(-1)
+        clean_a = _same_route_prefix(torch, bad, steps)
+        rel_ample = _rel_prefix(torch, via_kernel, fwd_a.transpose(0, 1),
+                                clean_a)
+        check(rel_ample <= bound, f"{name}: decode vs the forward without "
+              f"drops, logits rel L2 {rel_ample:.3g} > {bound} over "
+              f"{sum(clean_a)} positions")
+        del fwd_a
+    rel, clean_p = None, None
+    if apps:
+        M.decode_attention = FA.decode_attention_plain
+        try:
+            via_plain, routes_p = _routed(torch, MOE, lambda: _teacher_forced(
+                torch, M, params, cfg, seq))
+        finally:
+            M.decode_attention = FA.decode_attention
+        bad = torch.zeros((b, steps), dtype=torch.bool, device=dev)
+        for a, c in zip(dec_ids, _decode_routes(torch, routes_p, n_moe,
+                                                steps)):
+            bad |= (a != c).any(-1)
+        clean_p = _same_route_prefix(torch, bad, steps)
+        rel = _rel_prefix(torch, via_kernel, via_plain, clean_p)
+        check(rel <= bound, f"{name}: kernel vs plain logits rel L2 "
+              f"{rel:.3g} > {FAMILY_REL_L2} and > the bf16 forward's own "
+              f"distance from f32 ({floor}) over {sum(clean_p)} positions")
+        del via_plain
+    res = {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "n_params": n_params,
+        "init_s": init_s, "decode_steps": steps, "cold_wall_s": cold_s,
+        "warm_wall_s": wall, "ms_per_step": wall / steps * 1e3,
+        "tokens_per_s": b * SERVE_NEW / wall,
+        "decode_tokens_per_s": b * steps / wall,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": counts, "attention_apps_per_step": apps,
+        "bf16_forward_vs_f32_rel_l2": floor, "bound": bound,
+        "kernel_vs_plain_rel_l2": rel,
+        "kernel_vs_plain_positions": sum(clean_p) if clean_p else None,
+        "decode_vs_forward_rel_l2": rel_fwd,
+        "decode_vs_forward_positions": sum(clean_f),
+        "decode_vs_forward_no_drop_rel_l2": rel_ample,
+        "decode_vs_forward_no_drop_positions": (sum(clean_a) if clean_a
+                                                else None),
+        "forward_capacity_drops": int(sum(int(d.sum()) for _, d in
+                                          routes_f)),
+        "positions": b * steps, "sample": out[0, :8].tolist()}
+    del fwd, via_kernel, rerun
+    if name == PROFILED_SERVE:
+        window = seq[:, :PROFILE_STEPS + 1]
+        t0 = time.perf_counter()
+        _teacher_forced(torch, M, params, cfg, window)
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+        kernels, dev_s, win = _profile_kernels(
+            torch, lambda: _teacher_forced(torch, M, params, cfg, window),
+            f"profile_{name}.txt")
+        d = _decode_events(kernels, apps * PROFILE_STEPS)
+        res["profile"] = {
+            "steps": PROFILE_STEPS, "window_wall_s": window_s,
+            "device_s_per_step": dev_s / PROFILE_STEPS,
+            "device_busy_share": _busy_share(win["busy_s"], window_s),
+            "decode_kernel_ms_per_launch": d["ms_per_launch"],
+            "decode_kernel_share": d["ms"] / (dev_s * 1e3),
+            "top_kernels": [{"name": ev.key[:90],
+                             "ms": ev.self_device_time_total / 1e3,
+                             "launches": ev.count} for ev in kernels[:12]]}
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_serve_families(torch, K):
+    """Phase 10: each family's serve point (FAMILY_SERVE, bf16, published
+    widths, random weights from a seeded generator) through `generate` at
+    phase 7's shape (4 prompts × 16 tokens, 32 new): decode_attention
+    launched once per attention application and step (none for Mamba2 and
+    DeepSeek's MLA), a same-seed rerun bit-identical, two teacher-forced
+    decodes bit-identical with no capacity drop, the kernel path's logits
+    against the plain path's and decode's against `forward`'s at the same
+    positions (for a MoE: before each row's first token routed otherwise
+    or dropped, and again against a forward with room for every token)
+    within rel L2 5e-2, or the model's bf16 noise floor where that is
+    higher (FAMILY_REL_L2); ms per step, tokens/s and peak memory, and one
+    profiled window of PROFILED_SERVE."""
+    out = {}
+    for name, (arch, layers) in FAMILY_SERVE.items():
+        out[name] = _serve_family(torch, K, name, arch, layers)
+        print(f"{name}: " + json.dumps(out[name]))
+    return out
+
+
+def _train_family(torch, K, name, arch, layers, seq, checked_sizes):
+    from repro_torch.core import compression as C
+    from repro_torch.fl import distributed as D
+    from repro_torch.launch import train
+
+    cfg = _family_cfg(arch, layers)
+    args = train.parser().parse_args(
+        ["--arch", arch, "--steps", str(FAMILY_TRAIN_STEPS), "--batch", "8",
+         "--seq", str(seq), "--tau", "1", "--theta-u", "0.35",
+         "--theta-d-max", "0.6", "--error-feedback", "--seed", "0"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    with _FiniteOutputs(torch, C) as fin:
+        res = train.run(args, log=lambda line: None,
+                        cfg=cfg if layers else None)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    by_rows = K.launch_counts_by_rows()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    state = res["state"]
+    check(res["cfg"].n_layers == cfg.n_layers
+          and res["cfg"].d_model == cfg.d_model
+          and res["cfg"].dtype == "bfloat16", f"{name}: wrong config")
+    sizes = [x.numel() for x in D.tree_leaves(state.params)]
+    check(sum(sizes) == FAMILY_PARAMS[name], f"{name}: {sum(sizes)} "
+          f"parameters, want {FAMILY_PARAMS[name]}")
+    check(set(sizes) <= set(checked_sizes), f"{name}: a leaf width was not "
+          "checked in phase 3c")
+    losses = res["losses"]
+    check(len(losses) == FAMILY_TRAIN_STEPS
+          and all(math.isfinite(x) for x in losses), f"{name}: losses "
+          f"{losses}")
+    leaves, steps = len(sizes), FAMILY_TRAIN_STEPS
+    want = {"magnitude_histogram": 2 * leaves * steps,
+            "hybrid_compress": leaves * steps, "recover": leaves * steps,
+            "decode_attention": 0}
+    check(counts == want, f"{name}: launches {counts}, want {want}")
+    for k, per in by_rows.items():
+        check(set(per) <= {1} and sum(per.values()) == counts[k],
+              f"{name}: {k} ran at rows {per}, want one row")
+    for k, flags in fin.flags.items():
+        check(len(flags) == leaves * steps, f"{name}: {k} ran {len(flags)} "
+              f"times, want {leaves * steps}")
+        check(bool(torch.stack(flags).all()), f"{name}: a leaf's {k} "
+              "output holds a non-finite value")
+    walls = res["walls"]
+    warm = sorted(walls[1:])
+    wall = warm[len(warm) // 2]
+    tokens = args.batch * args.seq
+    out = {"arch": res["cfg"].name, "n_layers": cfg.n_layers,
+           "params": sum(sizes), "leaves": leaves, "seq": seq,
+           "losses": losses, "step_walls_s": walls,
+           "ms_per_step": wall * 1e3, "tokens_per_s": tokens / wall,
+           "peak_mem_gb": peak, "launches": counts}
+    step_fn = res["step_fn"]
+    del res
+    from repro_torch.core import rng as RNG
+    batch = train.make_batch(RNG.stream(1, RNG.KIND_DATASET), cfg,
+                             args.batch, args.seq, torch.device("cuda"))
+    if name == "train_llama4":
+        out["rerun"] = _same_step_twice(torch, D, step_fn, state, batch, name)
+    if name == PROFILED_TRAIN:
+        box = {"state": state}
+
+        def one():
+            box["state"], _ = step_fn(box["state"], batch)
+        kernels, dev_s, win = _profile_kernels(torch, one,
+                                               f"profile_{name}.txt")
+        ours = {}
+        for ev in kernels:
+            for k in ("magnitude_histogram_kernel", "hybrid_compress_kernel",
+                      "recover_kernel"):
+                if k in ev.key:
+                    ours[k] = ours.get(k, 0.0) + (
+                        ev.self_device_time_total / 1e3)
+        out["profiled_step"] = {
+            "device_kernel_s": dev_s, "device_busy_s": win["busy_s"],
+            "device_busy_share": _busy_share(win["busy_s"], wall),
+            "compression_kernels_ms": ours,
+            "compression_kernels_share_of_device": (
+                sum(ours.values()) / 1e3 / dev_s if dev_s else None),
+            "top_kernels": [{"name": ev.key[:90],
+                             "ms": ev.self_device_time_total / 1e3,
+                             "launches": ev.count} for ev in kernels[:15]]}
+        del box
+    del state, step_fn, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _same_step_twice(torch, D, step_fn, state, batch, name) -> dict:
+    """One train step from ``state`` on ``batch``, twice: losses, new
+    params, stale model and residuals equal bit for bit (the MoE combine
+    and dispatch fold in a fixed order). The first run's new state waits
+    on the host, so that the card holds one new state at a time (two
+    do not fit beside the old one at Llama-4-Scout's width)."""
+    a, ma = step_fn(state, batch)
+    names = ("params", "prev_params", "ef")
+    host = {k: [x.cpu() for x in D.tree_leaves(getattr(a, k))]
+            for k in names}
+    del a
+    torch.cuda.empty_cache()
+    b, mb = step_fn(state, batch)
+    check(torch.equal(ma["loss"], mb["loss"]), f"{name}: rerun loss differs")
+    for k in names:
+        check(all(torch.equal(x, y.cpu()) for x, y in
+                  zip(host[k], D.tree_leaves(getattr(b, k)))),
+              f"{name}: rerun {k} differ")
+    del b, host
+    torch.cuda.empty_cache()
+    return {"loss": float(ma["loss"]), "bit_identical": True}
+
+
+def _deepseek_parity(torch, checked_sizes) -> dict:
+    """DeepSeek-V3 at its smoke config (f32; MLA, a dense layer, top-2 of 8
+    routed experts and a shared one), cuda vs cpu for
+    DEEPSEEK_PARITY_STEPS Track-B steps with phase 8's Caesar settings
+    (`_cuda_cpu_parity`); its leaf widths were checked in phase 3c. Its
+    full width does not train on one card (ROADMAP item 13)."""
+    import repro_torch.configs as configs
+    from repro_torch.core import compression as C
+    from repro_torch.core import rng as RNG
+    from repro_torch.fl import distributed as D
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    cfg = configs.get(DEEPSEEK_ARCH).smoke()
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    sizes = [x.numel() for x in D.tree_leaves(params)]
+    check(set(sizes) <= set(checked_sizes), "deepseek smoke: a leaf width "
+          "was not checked in phase 3c")
+    rng = RNG.stream(0, RNG.KIND_DATASET)
+    batches = [train.make_batch(rng, cfg, DEEPSEEK_PARITY_BATCH,
+                                DEEPSEEK_PARITY_SEQ, "cpu")
+               for _ in range(DEEPSEEK_PARITY_STEPS)]
+    dcfg = D.DistConfig(theta_d=0.3, theta_u=0.35, local_lr=3e-2,
+                        use_error_feedback=True)
+    steps = _cuda_cpu_parity(torch, D, C, cfg, dcfg, params, batches,
+                             "deepseek smoke")
+    return {"params": sum(sizes), "steps": steps}
+
+
+def phase_train_families(torch, K, checked_sizes):
+    """Phase 10b: Track B of each family's train point (FAMILY_TRAIN, bf16,
+    published widths, Llama-4-Scout at depth 1 through ``train.run``'s
+    config override) as phase 8 runs it, FAMILY_TRAIN_STEPS steps: finite
+    losses, launches 2/1/1 per leaf and step at one row, every leaf width
+    among phase 3c's, no non-finite recovered download or upload; ms per
+    step, tokens/s, peak memory. Llama-4-Scout's last state then takes one
+    more step twice, bit for bit (`_same_step_twice`); PROFILED_TRAIN's
+    one profiled step. Then DeepSeek-V3's smoke config cuda vs cpu."""
+    out = {}
+    for name, (arch, layers, seq) in FAMILY_TRAIN.items():
+        out[name] = _train_family(torch, K, name, arch, layers, seq,
+                                  checked_sizes)
+        print(f"{name}: " + json.dumps(out[name]))
+    out["deepseek_smoke_parity"] = _deepseek_parity(torch, checked_sizes)
+    print("deepseek smoke cuda vs cpu: "
+          + json.dumps(out["deepseek_smoke_parity"]))
     return out
 
 
@@ -2446,6 +3005,9 @@ def main() -> int:
     serve_counts, serve = timed("serve_path", phase_serve, torch, K)
     train_out = timed("train_path", phase_train, torch, K, tb_sizes)
     example = timed("train_example", phase_train_example, torch, K, tb_sizes)
+    serve_fam = timed("serve_families", phase_serve_families, torch, K)
+    train_fam = timed("train_families", phase_train_families, torch, K,
+                      tb_sizes)
     _scratch_zeroed(torch, build, "the round, schemes, store, serve and "
                     "train paths")
 
@@ -2483,6 +3045,9 @@ def main() -> int:
                                  (name + "_per_row", " x per row"))
                 for r in (1, 2, 8) if (key, r) in wres},
             "launches_train_path": train_out["launches"][name],
+            "launches_train_families": {
+                k: v["launches"][name] for k, v in train_fam.items()
+                if "launches" in v},
             "launches_capped_path": {k: v[name]
                                      for k, v in capped_launches.items()},
             "track_b": {f"[1, {n}]{how}": {
@@ -2506,7 +3071,13 @@ def main() -> int:
         "kernel_only_ms": r["kernel_only_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "shape": r["shape"]})
+        "shape": r["shape"],
+        "launches_serve_families": {k: v["launches"]["decode_attention"]
+                                    for k, v in serve_fam.items()},
+        "family_shapes": {k: {x: dres[k][x] for x in (
+            "shape", "ms", "kernel_only_ms", "plain_ms", "library_ms",
+            "library_kernel_only_ms", "bound_ms", "max_abs_err")}
+            for k in ("llama4", "zamba2", "internvl2")}})
     phase_s["total"] = time.perf_counter() - t_start
     print("phase seconds: " + json.dumps(phase_s))
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -2528,6 +3099,8 @@ def main() -> int:
                        for k, v in r.items()},
                    "capped_store": capped, "resume": resume,
                    "train_path": train_out, "train_example": example,
+                   "serve_families": serve_fam,
+                   "train_families": train_fam,
                    "phase_s": phase_s, "kernels": kernels},
                   f, indent=1)
     print(f"card: {smi}")

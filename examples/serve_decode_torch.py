@@ -1,18 +1,27 @@
-"""Serving example, PyTorch port: batched greedy decoding with a KV cache,
-decode attention in the hand-written CUDA flash-decode kernel; the kernel's
-wrapper is also called directly at the end.
+"""Serving example, PyTorch port: batched greedy decoding with a cache
+(GQA K/V, MLA latents, SSM and conv states), GQA decode attention in the
+hand-written CUDA flash-decode kernel; the kernel's wrapper is also called
+directly at the end.
 
   python3 examples/serve_decode_torch.py                       # H100, full width
-  PYTHONPATH=src python examples/serve_decode_torch.py --smoke --device cpu
+  python3 examples/serve_decode_torch.py --arch zamba2-1.2b    # any family
+  python3 examples/serve_decode_torch.py --arch llama4-scout-17b-a16e \
+      --layers 2              # full width, depth cut to fit one card
+  PYTHONPATH=src python examples/serve_decode_torch.py --smoke --device cpu \
+      --arch deepseek-v3-671b
 
 The counterpart of examples/serve_decode.py, with its flags and defaults.
 By default it runs ``--arch qwen1.5-4b`` at full width in bf16 (40 layers,
 d_model 2560, ~3.95 B parameters, ~7.9 GB) on the card, with random weights
-from a seeded generator; ``--smoke`` takes the config's smoke variant and
+from a seeded generator; ``--smoke`` takes the config's smoke variant,
+``--layers`` cuts the depth (DeepSeek-V3 keeps one dense layer) and
 ``--device cpu`` runs on the CPU. Without a card, the default device
-raises. Only the dense family is ported.
+raises. Every family decodes but the encoder (hubert-xlarge), which raises
+``ValueError`` as the reference's does; Mamba2 and DeepSeek-V3 (MLA)
+decode without the flash-decode kernel.
 """
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -38,12 +47,17 @@ def main():
                     help="the config's reduced smoke variant")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     args = ap.parse_args()
 
     dev = M.resolve_device(args.device)
     cfg = configs.get(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers,
+                                  n_dense_layers=min(cfg.n_dense_layers, 1))
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = M.init_params(cfg, gen, device=dev)
     prompt = torch.from_numpy(

@@ -12,6 +12,11 @@ patterns plus noise from ``RNG.stream(0, KIND_DATASET)``). A restart
 advances the stream past the steps already taken, so the resumed run sees
 the batches the uninterrupted run saw. Checkpoints go to ``--ckpt``
 (default ``build/caesar_lm_ckpt`` in the checkout).
+
+Every other arch and family (MoE, MLA, Mamba2, the Zamba2 hybrid, the
+HuBERT encoder on audio frames, InternVL2 on image patches) trains through
+the same step with the Track-B launcher: ``python -m repro_torch.launch.train
+--arch <id> [--smoke --device cpu]``.
 """
 import argparse
 import dataclasses

@@ -2,8 +2,7 @@
 
 Each module exposes CONFIG (full, exact per the assignment); reduced smoke
 variants come from ``CONFIG.smoke()``. ``get(name)`` resolves the same arch
-ids and aliases as the reference. Every family resolves; the port's model
-runs the ``dense`` family and raises ``NotImplementedError`` for the rest.
+ids and aliases as the reference; the port's model runs every family.
 """
 from __future__ import annotations
 

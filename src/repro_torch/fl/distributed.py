@@ -63,7 +63,9 @@ class TrainState:
 
 
 # ---------------------------------------------------------------------------
-# Trees: nested dicts of tensors (an int8 leaf is a {"q", "s"} dict)
+# Trees: nested dicts of tensors (an int8 leaf is a {"q", "s"} dict). A
+# None is an empty subtree, as in the reference's pytrees (Llama-4-Scout's
+# ``dense_layers``): it holds no leaf and every map keeps it as None.
 # ---------------------------------------------------------------------------
 
 def _is_qleaf(x) -> bool:
@@ -72,7 +74,9 @@ def _is_qleaf(x) -> bool:
 
 def tree_map(fn: Callable, tree, *rest, is_leaf=None):
     """``fn`` over the leaves of nested dicts (sorted keys, as the
-    reference's pytrees), with matching ``rest`` trees."""
+    reference's pytrees), with matching ``rest`` trees; None stays None."""
+    if tree is None:
+        return None
     if isinstance(tree, dict) and not (is_leaf and is_leaf(tree)):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest),
                             is_leaf=is_leaf) for k in sorted(tree)}
@@ -80,11 +84,23 @@ def tree_map(fn: Callable, tree, *rest, is_leaf=None):
 
 
 def _paths(tree, prefix=()) -> list:
-    """Key paths of the leaves of nested dicts, in sorted-key order."""
+    """Key paths of the leaves of nested dicts, in sorted-key order (a None
+    value, such as a `_skeleton`'s leaf, counts as a leaf here)."""
     if isinstance(tree, dict):
         return [p for k in sorted(tree) for p in _paths(tree[k],
                                                         prefix + (k,))]
     return [prefix]
+
+
+def _leaf_paths(tree) -> list:
+    """`_paths` of the tensor leaves: without the empty (None) subtrees."""
+    return [p for p in _paths(tree) if _get(tree, p) is not None]
+
+
+def _skeleton(tree):
+    """``tree``'s dicts with None at every leaf (and at its None
+    subtrees), for `_set` to fill in."""
+    return tree_map(lambda _: None, tree)
 
 
 def _get(tree, path):
@@ -94,7 +110,7 @@ def _get(tree, path):
 
 
 def tree_leaves(tree) -> list:
-    return [_get(tree, p) for p in _paths(tree)]
+    return [_get(tree, p) for p in _leaf_paths(tree)]
 
 
 def _set(tree: dict, path, value):
@@ -223,22 +239,26 @@ def _sgd_steps(w_init, batch, cfg: ModelConfig, dcfg: DistConfig, device):
     """τ local SGD steps over microbatch slices of ``batch``; each update
     ``(p − lr·g)`` is cast to the param dtype. Returns (w_fin, [τ] losses)."""
     tau = max(cfg.local_iters, 1)
-    paths = _paths(w_init)
+    paths = _leaf_paths(w_init)
     p = w_init
     losses = []
     for i in range(tau):
         mb = {k: v[i * (v.shape[0] // tau):(i + 1) * (v.shape[0] // tau)]
               for k, v in batch.items()}
         leaves = [_get(p, q).detach().requires_grad_(True) for q in paths]
-        tree: dict = {}
+        tree = _skeleton(w_init)
         for q, leaf in zip(paths, leaves):
             _set(tree, q, leaf)
         with torch.enable_grad():
             loss = M.loss_fn(tree, mb, cfg, device)
-            grads = torch.autograd.grad(loss, leaves)
+            # a leaf the loss does not read (the encoder's token
+            # embedding) has a zero gradient, as jax.grad gives
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         del tree
-        newp: dict = {}
+        newp = _skeleton(w_init)
         for q, a, g in zip(paths, leaves, grads):
+            if g is None:
+                g = torch.zeros_like(a)
             _set(newp, q, (a.detach() - dcfg.local_lr * g).to(a.dtype))
         del leaves, grads
         p = newp
@@ -264,9 +284,9 @@ def _cohort_round(params, prev, ef, batch, theta_d, theta_u,
     # leaf so the recovered download and each delta go as soon as used
     wire_dtype = torch.bfloat16 if dcfg.compressed_collective else None
     own = w_init is not params
-    sparse: dict = {}
-    new_ef: Optional[dict] = {} if ef is not None else None
-    for q in _paths(w_fin):
+    sparse = _skeleton(w_fin)
+    new_ef = _skeleton(w_fin) if ef is not None else None
+    for q in _leaf_paths(w_fin):
         a = _pop(w_init, q) if own else _get(w_init, q)
         b = _get(w_fin, q)
         d = (a - b).to(a.dtype)
@@ -305,8 +325,8 @@ def make_train_step(cfg: ModelConfig, dcfg: DistConfig, mesh=None,
         ex = (lambda t: None if t is None
               else tree_map(lambda a: a[None], t))
         # (5) server update in f32, cast back to the param dtype
-        new_params: dict = {}
-        for q in _paths(state.params):
+        new_params = _skeleton(state.params)
+        for q in _leaf_paths(state.params):
             p = _get(state.params, q)
             d = _pop(sparse, q)
             _set(new_params, q, (p.to(torch.float32) - dcfg.server_lr

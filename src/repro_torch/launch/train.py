@@ -7,6 +7,12 @@ Examples:
       --steps 20 --batch 8 --seq 128 --ckpt-dir build/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --steps 5 \
       --error-feedback          # Qwen1.5-4B at full width on the card
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \
+      --smoke --device cpu --steps 4   # any arch of repro_torch.configs
+
+``--arch`` takes every arch id: the encoder trains on audio frames, the VLM
+on image patches plus ``seq − n_patches`` text tokens (InternVL2's 256
+patches need ``--seq`` above 256, e.g. 384, for any text to predict).
 
 Batches come from ``RNG.stream(seed, KIND_DATASET)``, the reference's
 token stream. On resume the stream is advanced past the steps already
@@ -34,15 +40,28 @@ from repro_torch.models import model as M
 
 def make_batch(rng: np.random.Generator, cfg, batch: int, seq: int,
                device) -> dict:
-    """One LM batch {"tokens", "labels"} [batch, seq] int32 (the reference's
-    draw, for the text-only dense family)."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported "
-            "(ROADMAP queue 1, item 14)")
-    toks = torch.from_numpy(
-        rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32)).to(device)
-    return {"tokens": toks, "labels": toks}
+    """One batch drawn as the reference's: {"tokens", "labels"} [batch,
+    seq] int32; for the audio frontend {"frames" [batch, seq, F] f32,
+    "labels"} (labels drawn after the frames); for the vision frontend
+    {"tokens", "labels"} [batch, seq − n_patches] and {"patches" [batch,
+    n_patches, F]} f32. The tokens are drawn first in every case, so the
+    stream advances the same way."""
+    toks = rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32)
+    out = {"tokens": toks, "labels": toks}
+    if cfg.frontend == "audio":
+        out = {"frames": rng.normal(size=(batch, seq, cfg.frontend_dim))
+               .astype(np.float32),
+               "labels": rng.integers(0, cfg.vocab, (batch, seq))
+               .astype(np.int32)}
+    elif cfg.frontend == "vision":
+        st = seq - cfg.n_patches
+        out = {"tokens": toks[:, :st],
+               "patches": rng.normal(size=(batch, cfg.n_patches,
+                                           cfg.frontend_dim))
+               .astype(np.float32),
+               "labels": toks[:, :st]}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in out.items()}
 
 
 def download_schedule(steps: int, theta_d_max: float) -> np.ndarray:
@@ -79,18 +98,21 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def run(args, log: Callable[[str], None] = print) -> dict:
+def run(args, log: Callable[[str], None] = print, cfg=None) -> dict:
     """Train ``args.steps`` steps (from the latest checkpoint, if any).
-    Returns the final state, the step function, the per-step losses
-    and host walls, and the step the run started from."""
+    ``cfg`` replaces the model config that ``--arch``/``--smoke`` name
+    (a caller's cut of depth; ``--tau`` still applies). Returns the final
+    state, the step function, the per-step losses and host walls, and the
+    step the run started from."""
     if args.production_mesh:
         raise NotImplementedError(
             "--production-mesh (pods over a 'pod' axis, sharded params) is "
             "not ported to repro_torch yet (ROADMAP queue 1 item 13)")
     dev = M.resolve_device(args.device)
-    cfg = configs.get(args.arch)
-    if args.smoke:
-        cfg = cfg.smoke()
+    if cfg is None:
+        cfg = configs.get(args.arch)
+        if args.smoke:
+            cfg = cfg.smoke()
     cfg = dataclasses.replace(cfg, local_iters=args.tau)
     dcfg = D.DistConfig(theta_d=0.0, theta_u=args.theta_u, local_lr=args.lr,
                         use_error_feedback=args.error_feedback)

@@ -1,7 +1,6 @@
 """Model configuration shared by the whole zoo (10 assigned archs + paper
 models): a copy of ``repro.models.config.ModelConfig``, field for field, so
-the port reads the same configs. The port runs the ``dense`` family only;
-the other fields are carried so every config resolves."""
+the port reads the same configs."""
 from __future__ import annotations
 
 import dataclasses

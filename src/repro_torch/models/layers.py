@@ -1,5 +1,5 @@
 """Shared NN primitives of the LM zoo, op for op as ``repro.models.layers``:
-init helpers, RMSNorm, RoPE, SwiGLU, and attention.
+init helpers, RMSNorm (plain and gated), RoPE, SwiGLU, and attention.
 
 Weights keep the reference's ``[d_in, d_out]`` layout (``x @ W``), so a
 reference pytree carries over as a copy. Every f32 upcast and cast back to
@@ -23,21 +23,57 @@ NEG_INF = -1e30
 # Initialization
 # ---------------------------------------------------------------------------
 
-def dense_init(generator: torch.Generator, d_in: int, d_out: int, dtype,
-               *, layers: int | None = None, device=None) -> torch.Tensor:
-    """N(0, 1/d_in) weights ``[d_in, d_out]`` (``[layers, d_in, d_out]``
-    for a stacked layer axis), drawn in f32 and cast to ``dtype``."""
-    shape = (d_in, d_out) if layers is None else (layers, d_in, d_out)
-    w = torch.randn(shape, generator=generator, device=device,
-                    dtype=torch.float32)
-    return (w * d_in ** -0.5).to(dtype)
+# at most this many elements are drawn in f32 at once: a larger leaf (the
+# expert stacks: DeepSeek-V3's MoE layer holds 3.8e9) is drawn slice by
+# slice along its leading axes, so the f32 temporary stays small
+_DRAW_ELEMS = 1 << 27
 
 
-def embed_init(generator: torch.Generator, vocab: int, d: int, dtype,
-               *, device=None) -> torch.Tensor:
-    w = torch.randn((vocab, d), generator=generator, device=device,
-                    dtype=torch.float32)
-    return (w * 0.02).to(dtype)
+class ParamMaker:
+    """Makes the parameter leaves of the zoo's init functions, in the
+    reference's distributions: ``dense`` N(0, 1/d_in) ``[d_in, d_out]``,
+    ``normal`` N(0, std²), ``ones`` and ``zeros``, each drawn in f32 and cast
+    to its dtype. ``layers`` prepends a stacked ``[L]`` axis to every leaf.
+    With ``generator=None`` the leaves are uninitialised tensors (on the
+    ``meta`` device: shapes and dtypes only, the reference's
+    ``init_abstract``)."""
+
+    def __init__(self, generator: torch.Generator | None, device,
+                 layers: int | None = None):
+        self.generator, self.device, self.layers = generator, device, layers
+
+    def stacked(self, n: int) -> "ParamMaker":
+        return ParamMaker(self.generator, self.device, n)
+
+    def _shape(self, shape) -> tuple:
+        shape = tuple(shape)
+        return shape if self.layers is None else (self.layers,) + shape
+
+    def normal(self, shape, std: float, dtype) -> torch.Tensor:
+        out = torch.empty(self._shape(shape), dtype=dtype, device=self.device)
+        if self.generator is None:
+            return out
+        flat = out.view(-1, *out.shape[1:]) if out.dim() else out.view(1)
+        while flat.dim() > 1 and flat[0].numel() > _DRAW_ELEMS:
+            flat = flat.view(-1, *flat.shape[2:])
+        step = max(1, _DRAW_ELEMS // max(flat[0].numel(), 1))
+        for i in range(0, flat.shape[0], step):
+            part = flat[i:i + step]
+            w = torch.randn(part.shape, generator=self.generator,
+                            device=self.device, dtype=torch.float32)
+            part.copy_(w * std)
+        return out
+
+    def dense(self, d_in: int, d_out: int, dtype) -> torch.Tensor:
+        return self.normal((d_in, d_out), d_in ** -0.5, dtype)
+
+    def ones(self, shape, dtype) -> torch.Tensor:
+        out = torch.empty(self._shape(shape), dtype=dtype, device=self.device)
+        return out if self.generator is None else out.fill_(1)
+
+    def zeros(self, shape, dtype) -> torch.Tensor:
+        out = torch.empty(self._shape(shape), dtype=dtype, device=self.device)
+        return out if self.generator is None else out.zero_()
 
 
 # ---------------------------------------------------------------------------
@@ -50,6 +86,13 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * scale.to(torch.float32)
     return out.to(x.dtype)
+
+
+def gated_rms_norm(x: torch.Tensor, gate: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2-style: norm(x * silu(gate)), the gate's silu in f32."""
+    return rms_norm(x * F.silu(gate.to(torch.float32)).to(x.dtype), scale,
+                    eps)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

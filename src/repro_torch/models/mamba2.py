@@ -1,0 +1,180 @@
+"""Mamba2 / SSD (state-space duality) blocks, the port of
+``repro.models.mamba2``: the chunked matmul-form scan for train/prefill
+and the one-token recurrence for decode, in plain torch as the reference
+computes them in plain jnp.
+
+SSD (Dao & Gu, arXiv:2405.21060): the sequence is split into chunks;
+intra-chunk interactions are a masked attention-like matmul, inter-chunk
+interactions carry a recurrent state [H, P, N] through a loop over chunks.
+One B/C group (n_groups = 1) is shared across heads.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+
+
+# ---------------------------------------------------------------------------
+# SSD core
+# ---------------------------------------------------------------------------
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """Stable segment-sum: out[..., i, j] = sum_{k=j+1..i} x[..., k], -inf
+    above the diagonal (selected with `torch.where`, so ``exp`` gives 0 and
+    the backward sees no inf − inf)."""
+    q = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    return torch.where(mask, out, -torch.inf)
+
+
+def ssd_chunked(x, dt, a, b, c, chunk: int):
+    """x [B,L,H,P]; dt [B,L,H] (>0); a [H] (<0); b,c [B,L,N].
+    Returns y [B,L,H,P] in x's dtype."""
+    bb, l, h, p = x.shape
+    n = b.shape[-1]
+    q = min(chunk, l)
+    while l % q:
+        q //= 2
+    nc = l // q
+
+    xd = (x * dt[..., None]).to(torch.float32)             # fold dt into x
+    da = (dt * a[None, None, :]).to(torch.float32)         # [B,L,H]
+
+    xc = xd.reshape(bb, nc, q, h, p)
+    dac = da.reshape(bb, nc, q, h).permute(0, 1, 3, 2)     # [B,C,H,Q]
+    bc = b.reshape(bb, nc, q, n).to(torch.float32)
+    cc = c.reshape(bb, nc, q, n).to(torch.float32)
+
+    da_cum = torch.cumsum(dac, dim=-1)                     # [B,C,H,Q]
+    # 1) intra-chunk (diagonal blocks)
+    lmat = torch.exp(_segsum(dac))                         # [B,C,H,Q,Q]
+    scores = torch.einsum("bcin,bcjn->bcij", cc, bc)       # [B,C,Q,Q]
+    att = scores[:, :, None] * lmat                        # [B,C,H,Q,Q]
+    y_diag = torch.einsum("bchij,bcjhp->bcihp", att, xc)
+
+    # 2) chunk final states
+    decay_to_end = torch.exp(da_cum[..., -1:] - da_cum)    # [B,C,H,Q]
+    states = torch.einsum("bcjn,bchj,bcjhp->bchpn", bc, decay_to_end, xc)
+
+    # 3) inter-chunk recurrence: the state entering each chunk
+    chunk_decay = torch.exp(da_cum[..., -1])               # [B,C,H]
+    h_prev = torch.zeros((bb, h, p, n), dtype=torch.float32, device=x.device)
+    h_prevs = []
+    for ci in range(nc):
+        h_prevs.append(h_prev)
+        h_prev = h_prev * chunk_decay[:, ci, :, None, None] + states[:, ci]
+    h_prevs = torch.stack(h_prevs, dim=1)                  # [B,C,H,P,N]
+
+    # 4) inter-chunk contribution
+    in_decay = torch.exp(da_cum)                           # from chunk start
+    y_off = torch.einsum("bcin,bchpn,bchi->bcihp", cc, h_prevs, in_decay)
+
+    y = (y_diag + y_off).reshape(bb, l, h, p)
+    return y.to(x.dtype)
+
+
+def ssd_decode(xt, dt, a, b, c, state):
+    """One-token recurrence. xt [B,H,P]; dt [B,H]; b,c [B,N];
+    state [B,H,P,N] f32. Returns (y [B,H,P], new state)."""
+    da = torch.exp((dt * a[None, :]).to(torch.float32))    # [B,H]
+    upd = torch.einsum("bn,bhp->bhpn", b.to(torch.float32),
+                       (xt * dt[..., None]).to(torch.float32))
+    new_state = state * da[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", new_state, c.to(torch.float32))
+    return y.to(xt.dtype), new_state
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv (width W) as shift-adds
+# ---------------------------------------------------------------------------
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor,
+                prev: torch.Tensor | None = None):
+    """x [B,L,Ch]; w [W,Ch]. prev: [B,W-1,Ch] carried state (decode) or
+    None. Returns (silu(conv) [B,L,Ch], new carried state)."""
+    width = w.shape[0]
+    if prev is None:
+        prev = x.new_zeros((x.shape[0], width - 1, x.shape[-1]))
+    xp = torch.cat([prev, x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1], :] * w[i][None, None, :]
+            for i in range(width))
+    new_prev = xp[:, -(width - 1):, :]
+    return F.silu(y.to(torch.float32)).to(x.dtype), new_prev
+
+
+# ---------------------------------------------------------------------------
+# Full Mamba2 block
+# ---------------------------------------------------------------------------
+
+def init_mamba_params(make: L.ParamMaker, cfg, dtype) -> dict:
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    w = cfg.ssm_conv_width
+    return {
+        "w_zx": make.dense(d, 2 * di, dtype),
+        "w_bcdt": make.dense(d, 2 * n + h, dtype),
+        "conv_w": make.normal((w, di + 2 * n), 0.2, dtype),
+        "a_log": make.zeros((h,), torch.float32),          # A = -exp(0) = -1
+        "dt_bias": make.zeros((h,), torch.float32),
+        "d_skip": make.ones((h,), dtype),
+        "norm": make.ones((di,), dtype),
+        "w_out": make.dense(di, d, dtype),
+    }
+
+
+def _projections(x, p, cfg):
+    di, n = cfg.d_inner, cfg.ssm_state
+    zx = torch.matmul(x, p["w_zx"])
+    z, xin = zx[..., :di], zx[..., di:]
+    bcdt = torch.matmul(x, p["w_bcdt"])
+    b, c, dt_raw = bcdt[..., :n], bcdt[..., n:2 * n], bcdt[..., 2 * n:]
+    # jax.nn.softplus is logaddexp(x, 0); F.softplus switches to x above 20
+    dt = torch.logaddexp(dt_raw.to(torch.float32) + p["dt_bias"],
+                         torch.zeros((), device=x.device))
+    return z, xin, b, c, dt
+
+
+def mamba_block(x, p, cfg, state=None, conv_state=None):
+    """x [B,L,d] → (y [B,L,d], (ssm_state, conv_state)); a given state means
+    decode (L = 1)."""
+    bb, l, _ = x.shape
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    ph = cfg.ssm_head_dim
+    z, xin, b, c, dt = _projections(x, p, cfg)
+    a = -torch.exp(p["a_log"])
+
+    xbc = torch.cat([xin, b, c], dim=-1)
+    xbc, new_conv = causal_conv(xbc, p["conv_w"], conv_state)
+    xin, b, c = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
+
+    xh = xin.reshape(bb, l, h, ph)
+    if state is None:
+        y = ssd_chunked(xh, dt, a, b, c, cfg.ssm_chunk)
+        new_state = None   # the train path does not expose the state
+    else:
+        y1, new_state = ssd_decode(xh[:, 0], dt[:, 0], a, b[:, 0], c[:, 0],
+                                   state)
+        y = y1[:, None]
+    y = y + xh * p["d_skip"].to(y.dtype)[None, None, :, None]
+    y = y.reshape(bb, l, di)
+    y = L.gated_rms_norm(y, z, p["norm"], cfg.norm_eps)
+    out = torch.matmul(y, p["w_out"])
+    return out, (new_state, new_conv)
+
+
+def init_mamba_cache(batch: int, cfg, dtype, device,
+                     layers: int | None = None):
+    """(ssm state [B,H,P,N] f32, conv state [B,W-1,d_inner+2N]) zeros, with
+    a leading [layers] axis when given: real tensors, which decode writes
+    in place (the reference broadcasts one zero state)."""
+    h, ph, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    lead = () if layers is None else (layers,)
+    ssm = torch.zeros(lead + (batch, h, ph, n), dtype=torch.float32,
+                      device=device)
+    conv = torch.zeros(lead + (batch, cfg.ssm_conv_width - 1,
+                               cfg.d_inner + 2 * n), dtype=dtype,
+                       device=device)
+    return ssm, conv

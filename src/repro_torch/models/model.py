@@ -1,8 +1,10 @@
-"""The LM zoo's dense family, counterpart of ``repro.models.model`` without
-a mesh (``mesh=None`` only).
+"""The LM zoo, counterpart of ``repro.models.model`` without a mesh
+(``mesh=None`` only): dense / MoE (with GQA or MLA) / SSM (Mamba2) /
+hybrid (Zamba2) / encoder (audio frontend) / VLM (vision frontend).
 
 Public API (functions of a params dict, as the reference's pytree):
     init_params(cfg, generator, device)          -> params
+    init_abstract(cfg)                           -> params on ``meta``
     from_reference(params_numpy_pytree, cfg, device) -> params (a copy)
     init_cache(cfg, batch, seq, device)          -> cache
     forward(params, batch, cfg, device)          -> logits [B, S, V]
@@ -12,18 +14,25 @@ Public API (functions of a params dict, as the reference's pytree):
     generate(params, cfg, prompt, new_tokens, device)      -> new tokens
 
 Parameters keep the reference's layout: layers stacked along a leading
-``[L]`` axis, weights ``[d_in, d_out]``. The layer scan is a Python loop
-over that axis. Decode attention goes through the CUDA kernel's wrapper
+``[L]`` axis, weights ``[d_in, d_out]``, an empty stack (Llama-4-Scout's
+``dense_layers``) as ``None``. The layer scans are Python loops over that
+axis; heterogeneous stacks (DeepSeek's dense prefix, Zamba2's shared
+attention every ``attn_every`` Mamba2 layers) are segmented as in the
+reference. GQA decode attention goes through the CUDA kernel's wrapper
 (`decode_attention`, the name this module looks up at call time); the
 Pallas kernel's own docstring calls it "the inference-path counterpart with
-identical math" of the reference's ``decode_attention_jnp``.
+identical math" of the reference's ``decode_attention_jnp``. MLA's absorbed
+decode, the MoE dispatch and the SSD scan are plain torch, as the
+reference computes them in plain jnp. Decode writes every cache (K/V,
+MLA latents, SSM and conv states) in place.
 
 Every entry point runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, and raises when there is no card; tensors on another
-device than the one named are refused. Families other than ``dense`` raise
-``NotImplementedError`` naming their ROADMAP item.
+device than the one named are refused. The encoder family has no decode:
+`init_cache` and `decode_step` raise ``ValueError`` as the reference does.
 
-Training: `loss_fn` is the reference's next-token cross entropy; its
+Training: `loss_fn` is the reference's cross entropy (next-token for the
+decoders, per-frame for the encoder, text positions only for the VLM); its
 gradients come from ``torch.autograd`` through `forward` (the train-path
 `layers.flash_attention` is plain torch, as in the reference, and
 differentiable). Track-B's cohort round (`repro_torch.fl.distributed`)
@@ -38,33 +47,18 @@ import torch
 
 from repro_torch.kernels.flash_attention import decode_attention
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 from repro_torch.models.config import ModelConfig
 
 Params = Any
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_NOT_PORTED = {
-    "moe": "MoE",
-    "ssm": "Mamba2",
-    "hybrid": "hybrid (Mamba2 + shared attention)",
-    "encoder": "encoder-only",
-    "vlm": "VLM (vision frontend)",
-}
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {_NOT_PORTED[cfg.family]} family is not ported "
-            "yet (ROADMAP queue 1, item 14: Track B)")
-    if cfg.family != "dense" or cfg.use_mla or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense family without MLA or a frontend is "
-            "ported (ROADMAP queue 1, item 14: Track B)")
 
 
 def resolve_device(device) -> torch.device:
@@ -84,43 +78,106 @@ def _on(t: torch.Tensor, dev: torch.device, what: str) -> None:
         raise ValueError(f"{what} is on {t.device}, not on {dev}")
 
 
+def _no_decode(cfg: ModelConfig) -> None:
+    if not cfg.supports_decode:
+        raise ValueError(f"{cfg.family} does not support decode")
+
+
 # ===========================================================================
 # Parameters
 # ===========================================================================
 
+def _init_gqa(make: L.ParamMaker, cfg, dtype, d_attn=None) -> dict:
+    d = d_attn or cfg.d_model
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {"wq": make.dense(d, h * dh, dtype),
+         "wk": make.dense(d, hkv * dh, dtype),
+         "wv": make.dense(d, hkv * dh, dtype),
+         "wo": make.dense(h * dh, cfg.d_model, dtype)}
+    if cfg.qkv_bias:
+        p["bq"] = make.zeros((h * dh,), dtype)
+        p["bk"] = make.zeros((hkv * dh,), dtype)
+        p["bv"] = make.zeros((hkv * dh,), dtype)
+    return p
+
+
+def _init_ffn(make: L.ParamMaker, cfg, dtype, d_ff=None, d_in=None) -> dict:
+    f, d = d_ff or cfg.d_ff, d_in or cfg.d_model
+    return {"w_gate": make.dense(d, f, dtype), "w_up": make.dense(d, f, dtype),
+            "w_down": make.dense(f, cfg.d_model, dtype)}
+
+
+def _init_attn_layer(make: L.ParamMaker, cfg, dtype, moe: bool) -> dict:
+    d = cfg.d_model
+    p = {"ln1": make.ones((d,), dtype), "ln2": make.ones((d,), dtype),
+         "attn": (MLA.init_mla_params(make, cfg, dtype) if cfg.use_mla
+                  else _init_gqa(make, cfg, dtype))}
+    p["ffn"] = (MOE.init_moe_params(
+        make, cfg, dtype, lambda mk, f: _init_ffn(mk, cfg, dtype, d_ff=f))
+        if moe else _init_ffn(make, cfg, dtype))
+    return p
+
+
+def _stack_init(make: L.ParamMaker, n: int, fn):
+    """``fn`` of a maker that stacks n layers; None for an empty stack."""
+    return fn(make.stacked(n)) if n > 0 else None
+
+
+def _param_tree(cfg: ModelConfig, make: L.ParamMaker) -> Params:
+    dt = _dtype(cfg)
+    d = cfg.d_model
+    p: dict = {"embed": make.normal((cfg.vocab, d), 0.02, dt),
+               "final_norm": make.ones((d,), dt),
+               "lm_head": make.dense(d, cfg.vocab, dt)}
+    if cfg.frontend is not None:
+        p["frontend_proj"] = make.dense(cfg.frontend_dim, d, dt)
+
+    def mamba_layer(mk):
+        return {"ln1": mk.ones((d,), dt),
+                "mamba": M2.init_mamba_params(mk, cfg, dt)}
+
+    fam = cfg.family
+    if fam in ("dense", "encoder", "vlm"):
+        p["layers"] = _stack_init(
+            make, cfg.n_layers,
+            lambda mk: _init_attn_layer(mk, cfg, dt, moe=False))
+    elif fam == "moe":
+        nd = cfg.n_dense_layers
+        p["dense_layers"] = _stack_init(
+            make, nd, lambda mk: _init_attn_layer(mk, cfg, dt, moe=False))
+        p["moe_layers"] = _stack_init(
+            make, cfg.n_layers - nd,
+            lambda mk: _init_attn_layer(mk, cfg, dt, moe=True))
+    elif fam == "ssm":
+        p["layers"] = _stack_init(make, cfg.n_layers, mamba_layer)
+    elif fam == "hybrid":
+        p["layers"] = _stack_init(make, cfg.n_layers, mamba_layer)
+        # Zamba2's shared attention block on concat([h, x_emb]) (width 2d)
+        d2 = 2 * d
+        p["shared_attn"] = {
+            "ln": make.ones((d2,), dt),
+            "attn": _init_gqa(make, cfg, dt, d_attn=d2),
+            "ln2": make.ones((d2,), dt),
+            "ffn": _init_ffn(make, cfg, dt, d_in=d2)}
+    else:
+        raise ValueError(fam)
+    return p
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Params:
     """Random parameters in the reference's distributions (N(0, 1/d_in)
-    weights, N(0, 0.02²) embedding, unit norms, zero QKV biases), drawn
-    from ``generator``, which must live on ``device``."""
-    _check_family(cfg)
+    weights, N(0, 0.02²) embedding, N(0, 1/d) f32 router, N(0, 0.2²) conv
+    taps, unit norms and skips, zero QKV biases, ``a_log`` and ``dt_bias``),
+    drawn from ``generator``, which must live on ``device``."""
     dev = resolve_device(device)
-    dt = _dtype(cfg)
-    n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    kw = dict(device=dev)
+    return _param_tree(cfg, L.ParamMaker(generator, dev))
 
-    def dense(d_in, d_out, layers=None):
-        return L.dense_init(generator, d_in, d_out, dt, layers=layers, **kw)
 
-    attn = {"wq": dense(d, h * dh, n), "wk": dense(d, hkv * dh, n),
-            "wv": dense(d, hkv * dh, n), "wo": dense(h * dh, d, n)}
-    if cfg.qkv_bias:
-        attn["bq"] = torch.zeros((n, h * dh), dtype=dt, **kw)
-        attn["bk"] = torch.zeros((n, hkv * dh), dtype=dt, **kw)
-        attn["bv"] = torch.zeros((n, hkv * dh), dtype=dt, **kw)
-    return {
-        "embed": L.embed_init(generator, cfg.vocab, d, dt, **kw),
-        "final_norm": torch.ones(d, dtype=dt, **kw),
-        "lm_head": dense(d, cfg.vocab),
-        "layers": {
-            "ln1": torch.ones((n, d), dtype=dt, **kw),
-            "ln2": torch.ones((n, d), dtype=dt, **kw),
-            "attn": attn,
-            "ffn": {"w_gate": dense(d, f, n), "w_up": dense(d, f, n),
-                    "w_down": dense(f, d, n)},
-        },
-    }
+def init_abstract(cfg: ModelConfig) -> Params:
+    """The parameters' shapes and dtypes as tensors on the ``meta`` device
+    (no memory), the reference's ``init_abstract``."""
+    return _param_tree(cfg, L.ParamMaker(None, torch.device("meta")))
 
 
 def _to_tensor(a, dev: torch.device) -> torch.Tensor:
@@ -132,23 +189,38 @@ def _to_tensor(a, dev: torch.device) -> torch.Tensor:
     return t.to(dev)
 
 
+def _structure(tree, prefix=""):
+    """{path: (shape, dtype)} of a tree's leaves; None subtrees as None."""
+    if tree is None:
+        return {prefix: None}
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_structure(tree[k], f"{prefix}/{k}"))
+        return out
+    return {prefix: (tuple(tree.shape), tree.dtype)}
+
+
 def from_reference(params, cfg: ModelConfig, device="cuda") -> Params:
     """The reference's ``init_params`` pytree (numpy or jax arrays, stacked
-    ``[L, ...]`` layers) as the port's parameters: the same nested dict,
-    copied leaf by leaf in the same dtype."""
-    _check_family(cfg)
+    ``[L, ...]`` layers, None for an empty stack) as the port's parameters:
+    the same nested dict, copied leaf by leaf in the same dtype. Raises
+    ``ValueError`` when its leaves are not those of ``cfg``."""
     dev = resolve_device(device)
 
     def conv(x):
+        if x is None:
+            return None
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
         return _to_tensor(x, dev)
 
     out = conv(params)
-    want = {"embed", "final_norm", "lm_head", "layers"}
-    if set(out) != want:
-        raise ValueError(f"expected a dense params pytree with keys {want}, "
-                         f"got {sorted(out)}")
+    got, want = _structure(out), _structure(init_abstract(cfg))
+    if got != want:
+        diff = sorted(k for k in set(got) | set(want)
+                      if got.get(k, "-") != want.get(k, "-"))
+        raise ValueError(f"params do not match {cfg.name}'s: {diff[:6]}")
     return out
 
 
@@ -161,6 +233,11 @@ def _unstack(stacked: dict, n: int) -> list:
     parts = {k: (_unstack(v, n) if isinstance(v, dict)
                  else torch.unbind(v, 0)) for k, v in stacked.items()}
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _n_stacked(stacked: dict) -> int:
+    v = next(iter(stacked.values()))
+    return _n_stacked(v) if isinstance(v, dict) else v.shape[0]
 
 
 # ===========================================================================
@@ -209,35 +286,122 @@ def _gqa_attention(x, p, cfg, rope, cache=None, length=None):
     return torch.matmul(y, p["wo"]), new_cache
 
 
-def _attn_ffn_layer(x, lp, cfg, rope, cache=None, length=None):
+def _attn_ffn_layer(x, lp, cfg, rope, cache=None, length=None, moe=False):
     h = x
     xa = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
-    ao, new_cache = _gqa_attention(xa, lp["attn"], cfg, rope, cache, length)
+    if cfg.use_mla:
+        if cache is None:
+            ao, new_cache = MLA.mla_attention_train(xa, lp["attn"], cfg, rope)
+        else:
+            ao, new_cache = MLA.mla_attention_decode(xa, lp["attn"], cfg,
+                                                     cache, length, rope)
+    else:
+        ao, new_cache = _gqa_attention(xa, lp["attn"], cfg, rope, cache,
+                                       length)
     h = h + ao
     xf = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
     fp = lp["ffn"]
-    return h + L.swiglu(xf, fp["w_gate"], fp["w_up"], fp["w_down"]), new_cache
+    if moe:
+        fo = MOE.moe_ffn(xf, fp, cfg)
+        if cfg.n_shared_experts:
+            sp = fp["shared"]
+            fo = fo + L.swiglu(xf, sp["w_gate"], sp["w_up"], sp["w_down"])
+    else:
+        fo = L.swiglu(xf, fp["w_gate"], fp["w_up"], fp["w_down"])
+    return h + fo, new_cache
 
 
 def _rope(cfg, positions):
-    """(cos, sin) of ``positions``: the reference recomputes them in every
-    layer's attention; they are the same for every layer, so the port
-    computes them once per call (same values, 39 fewer small launches per
-    layer stack)."""
-    return L.rope_freqs(cfg.head_dim, cfg.rope_theta, positions)
+    """(cos, sin) of ``positions`` (at ``qk_rope_dim`` under MLA): the
+    reference recomputes them in every layer's attention; they are the same
+    for every layer, so the port computes them once per call (same values,
+    fewer small launches per layer stack)."""
+    dim = cfg.qk_rope_dim if cfg.use_mla else cfg.head_dim
+    return L.rope_freqs(dim, cfg.rope_theta, positions)
 
 
-def _scan_layers(x, stacked, cfg, positions, caches=None, length=None):
-    """The layer stack in order (the reference's ``lax.scan``). ``caches``:
-    {"k", "v"} with a leading L axis, written in place."""
-    n = stacked["ln1"].shape[0]
+def _scan_layers(x, stacked, cfg, positions, caches=None, length=None,
+                 moe=False):
+    """The attention layer stack in order (the reference's ``lax.scan``);
+    an empty stack (None) passes x through. ``caches``: a dict of [L, ...]
+    tensors ({"k", "v"}, or MLA's {"c", "k_rope"}), written in place."""
+    if stacked is None:
+        return x, caches
     rope = _rope(cfg, positions)
-    for i, lp in enumerate(_unstack(stacked, n)):
+    for i, lp in enumerate(_unstack(stacked, _n_stacked(stacked))):
         cache = (None if caches is None else
-                 {"k": caches["k"][i], "v": caches["v"][i]})
-        x, _ = _attn_ffn_layer(x, lp, cfg, rope, cache, length)
+                 {k: v[i] for k, v in caches.items()})
+        x, _ = _attn_ffn_layer(x, lp, cfg, rope, cache, length, moe)
     return x, caches
 
+
+# --- SSM / hybrid stacks ----------------------------------------------------
+
+def _scan_mamba(x, layers: list, cfg, states=None, convs=None):
+    """Mamba2 layers (per-layer dicts) in order, each ``h + block(norm(h))``.
+    Decode (``states`` [L, B, H, P, N], ``convs`` [L, B, W-1, C]) writes
+    each layer's new states in place."""
+    for i, lp in enumerate(layers):
+        xa = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        mo, (ns, nc) = M2.mamba_block(
+            xa, lp["mamba"], cfg,
+            state=None if states is None else states[i],
+            conv_state=None if convs is None else convs[i])
+        x = x + mo
+        if states is not None:
+            states[i].copy_(ns)
+            convs[i].copy_(nc)
+    return x
+
+
+def _shared_attn_block(h, x0, sp, cfg, rope, cache=None, length=None):
+    """Zamba2 shared block: attention+MLP on concat([h, x0]) → residual to
+    h."""
+    z = torch.cat([h, x0], dim=-1)
+    za = L.rms_norm(z, sp["ln"], cfg.norm_eps)
+    ao, new_cache = _gqa_attention(za, sp["attn"], cfg, rope, cache, length)
+    z2 = L.rms_norm(z + torch.cat([ao, torch.zeros_like(ao)], dim=-1),
+                    sp["ln2"], cfg.norm_eps)
+    fp = sp["ffn"]
+    return h + ao + L.swiglu(z2, fp["w_gate"], fp["w_up"],
+                             fp["w_down"]), new_cache
+
+
+def _hybrid_segments(cfg) -> list:
+    """Segment the mamba stack at shared-attention application points."""
+    period = cfg.attn_every
+    segs, done = [], 0
+    while done < cfg.n_layers:
+        seg = min(period, cfg.n_layers - done)
+        segs.append(seg)
+        done += seg
+    return segs
+
+
+def _hybrid(x, params, cfg, positions, cache=None, length=None):
+    """Zamba2's stack: before each segment of ``attn_every`` Mamba2 layers,
+    the shared block on concat([h, embedding]) (cache["shared"] slice si
+    for application si in decode)."""
+    x0 = x
+    rope = _rope(cfg, positions)
+    layers = _unstack(params["layers"], cfg.n_layers)
+    off = 0
+    for si, seg in enumerate(_hybrid_segments(cfg)):
+        sc = (None if cache is None else
+              {k: v[si] for k, v in cache["shared"].items()})
+        x, _ = _shared_attn_block(x, x0, params["shared_attn"], cfg, rope,
+                                  sc, length)
+        x = _scan_mamba(
+            x, layers[off:off + seg], cfg,
+            None if cache is None else cache["ssm"][off:off + seg],
+            None if cache is None else cache["conv"][off:off + seg])
+        off += seg
+    return x
+
+
+# ===========================================================================
+# Embedding / frontend
+# ===========================================================================
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of ``table`` for ``tokens``. ``F.embedding``, not ``table[tokens]``:
@@ -248,33 +412,70 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.embedding(tokens.long(), table)
 
 
-def forward(params, batch, cfg: ModelConfig, device="cuda") -> torch.Tensor:
-    """Logits [B, S, V] of the full causal forward; batch {"tokens": [B,S]}."""
-    _check_family(cfg)
-    dev = resolve_device(device)
-    tokens = batch["tokens"]
-    _on(tokens, dev, "tokens")
+def embed_inputs(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """batch: {"tokens": [B,S]}, or {"frames": [B,S,F]} for the audio
+    frontend, or {"tokens", "patches": [B,P,F]} for the vision frontend
+    (patches first)."""
+    if cfg.frontend == "audio":
+        return torch.matmul(batch["frames"].to(_dtype(cfg)),
+                            params["frontend_proj"])
+    tok = embed_lookup(params["embed"], batch["tokens"])
+    if cfg.frontend == "vision":
+        patch = torch.matmul(batch["patches"].to(_dtype(cfg)),
+                             params["frontend_proj"])
+        return torch.cat([patch, tok], dim=1)
+    return tok
+
+
+def _check_batch(params, batch, dev) -> None:
+    for k, v in batch.items():
+        _on(v, dev, k)
     _on(params["embed"], dev, "params")
-    x = embed_lookup(params["embed"], tokens)
+
+
+# ===========================================================================
+# Train forward / loss
+# ===========================================================================
+
+def forward(params, batch, cfg: ModelConfig, device="cuda") -> torch.Tensor:
+    """Logits [B, S, V] of the full forward (causal but for the encoder)."""
+    dev = resolve_device(device)
+    _check_batch(params, batch, dev)
+    x = embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=dev)
-    x, _ = _scan_layers(x, params["layers"], cfg, positions)
+    fam = cfg.family
+    if fam in ("dense", "encoder", "vlm"):
+        x, _ = _scan_layers(x, params["layers"], cfg, positions)
+    elif fam == "moe":
+        x, _ = _scan_layers(x, params["dense_layers"], cfg, positions)
+        x, _ = _scan_layers(x, params["moe_layers"], cfg, positions,
+                            moe=True)
+    elif fam == "ssm":
+        x = _scan_mamba(x, _unstack(params["layers"], cfg.n_layers), cfg)
+    elif fam == "hybrid":
+        x = _hybrid(x, params, cfg, positions)
+    else:
+        raise ValueError(fam)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return torch.matmul(x, params["lm_head"])
 
 
 def loss_fn(params, batch, cfg: ModelConfig, device="cuda") -> torch.Tensor:
-    """Mean next-token cross entropy over the positions with ``labels >= 0``
-    (batch {"tokens", "labels": [B, S]}), as the reference's ``loss_fn``:
-    logits and labels shift by one, the row max is taken with its gradient
-    stopped, the shift stays in the model dtype, ``exp``/``log`` run in f32
-    and the label logit is read in f32. The label logit is a gather (the
-    reference contracts a one-hot, which only a sharded vocabulary needs;
-    the values and the gradient are the same); masked labels are clamped
-    to 0 for the gather and weigh 0."""
+    """Mean cross entropy over the positions with ``labels >= 0``, as the
+    reference's ``loss_fn``: the VLM's logits keep only the text positions,
+    the decoders' logits and labels shift by one (the encoder's do not),
+    the row max is taken with its gradient stopped, the shift stays in the
+    model dtype, ``exp``/``log`` run in f32 and the label logit is read in
+    f32. The label logit is a gather (the reference contracts a one-hot,
+    which only a sharded vocabulary needs; the values and the gradient are
+    the same); masked labels are clamped to 0 for the gather and weigh 0."""
     logits = forward(params, batch, cfg, device)
     labels = batch["labels"].to(torch.int64)
-    logits = logits[:, :-1, :]              # next-token shift (dense AR)
-    labels = labels[:, 1:]
+    if cfg.frontend == "vision":            # loss only on text positions
+        logits = logits[:, cfg.n_patches:, :]
+    if cfg.family != "encoder":             # next-token shift for decoders
+        logits = logits[:, :-1, :]
+        labels = labels[:, 1:]
     m = torch.amax(logits.detach(), dim=-1, keepdim=True)
     shifted = logits - m                                       # model dtype
     sumexp = torch.sum(torch.exp(shifted.to(torch.float32)), dim=-1)
@@ -297,34 +498,83 @@ def prefill(params, batch, cfg: ModelConfig, device="cuda") -> torch.Tensor:
 # ===========================================================================
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device="cuda"):
-    """{"layers": {"k", "v": [L, B, S, Hkv, Dh]}} zeros in the model dtype."""
-    _check_family(cfg)
+    """Zeros in the model dtype (SSM states in f32), the reference's
+    layout: {"layers": {"k", "v": [L, B, S, Hkv, Dh]}} (dense, VLM);
+    {"dense_layers", "moe_layers"} of K/V or, under MLA, of latents
+    {"c": [L, B, S, kv_lora], "k_rope": [L, B, S, qk_rope]} (an empty
+    stack has L = 0); {"ssm": [L, B, H, P, N], "conv": [L, B, W-1, C]}
+    (SSM), plus {"shared": {"k", "v": [n_shared, B, S, Hkv, Dh]}} for the
+    hybrid. The encoder raises ``ValueError``."""
+    _no_decode(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim)
-    return {"layers": {"k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-                       "v": torch.zeros(shape, dtype=_dtype(cfg),
-                                        device=dev)}}
+    dt = _dtype(cfg)
+
+    def kv(n):
+        shape = (n, batch, seq, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        return {"layers": kv(cfg.n_layers)}
+    if fam == "moe":
+        nd, nm = cfg.n_dense_layers, cfg.n_layers - cfg.n_dense_layers
+        if cfg.use_mla:
+            return {"dense_layers": MLA.init_mla_cache(batch, seq, cfg, dt,
+                                                       dev, layers=nd),
+                    "moe_layers": MLA.init_mla_cache(batch, seq, cfg, dt,
+                                                     dev, layers=nm)}
+        return {"dense_layers": kv(nd), "moe_layers": kv(nm)}
+    ssm, conv = M2.init_mamba_cache(batch, cfg, dt, dev, layers=cfg.n_layers)
+    if fam == "ssm":
+        return {"ssm": ssm, "conv": conv}
+    if fam == "hybrid":
+        return {"ssm": ssm, "conv": conv,
+                "shared": kv(len(_hybrid_segments(cfg)))}
+    raise ValueError(fam)
 
 
 def decode_step(params, cache, batch, length, cfg: ModelConfig,
                 device="cuda"):
     """One token for every sequence. batch {"tokens": [B,1]}; length [B]
-    int32, the number of tokens already in the cache. Writes the new K/V at
-    position length[b] in place and returns (logits [B, V], cache)."""
-    _check_family(cfg)
+    int32, the number of tokens already in the cache. Writes the new
+    position (K/V or latents at length[b], SSM and conv states) in place
+    and returns (logits [B, V], cache)."""
+    _no_decode(cfg)
     dev = resolve_device(device)
     tokens = batch["tokens"]
     for t, what in ((tokens, "tokens"), (length, "length"),
                     (params["embed"], "params"),
-                    (cache["layers"]["k"], "cache")):
+                    (next(_cache_leaves(cache)), "cache")):
         _on(t, dev, what)
     x = embed_lookup(params["embed"], tokens)
     positions = length[:, None]
-    x, nc = _scan_layers(x, params["layers"], cfg, positions,
-                         caches=cache["layers"], length=length)
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        x, _ = _scan_layers(x, params["layers"], cfg, positions,
+                            caches=cache["layers"], length=length)
+    elif fam == "moe":
+        x, _ = _scan_layers(x, params["dense_layers"], cfg, positions,
+                            caches=cache["dense_layers"], length=length)
+        x, _ = _scan_layers(x, params["moe_layers"], cfg, positions,
+                            caches=cache["moe_layers"], length=length,
+                            moe=True)
+    elif fam == "ssm":
+        x = _scan_mamba(x, _unstack(params["layers"], cfg.n_layers), cfg,
+                        states=cache["ssm"], convs=cache["conv"])
+    else:                                   # hybrid
+        x = _hybrid(x, params, cfg, positions, cache, length)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = torch.matmul(x, params["lm_head"])
-    return logits[:, 0], {"layers": nc}
+    return logits[:, 0], cache
+
+
+def _cache_leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _cache_leaves(tree[k])
+    else:
+        yield tree
 
 
 def generate(params, cfg: ModelConfig, prompt: torch.Tensor,
@@ -333,6 +583,7 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor,
     [B, P] goes token by token through `decode_step`, then the argmax token
     is fed back; P + new_tokens − 1 steps. Returns the new tokens
     [B, new_tokens] (int32). The loop never waits on the card."""
+    _no_decode(cfg)
     dev = resolve_device(device)
     _on(prompt, dev, "prompt")
     b, p = prompt.shape

@@ -63,12 +63,14 @@ PORT_FNS = {"twin": T_REF.decode_attention, "wrapper": FA.decode_attention,
 
 # the shapes of tests/test_kernels.py (b, h, hkv, d, s, kv_block), plus
 # groups G = H/Hkv of 3 and 4 (the reference's shapes have G = 2, 4, 1)
+# and Llama-4-Scout's heads (40 over 8 kv heads: G = 5, no power of two)
 PALLAS_SHAPES = [
     (2, 8, 4, 64, 1024, 256),
     (1, 4, 1, 128, 512, 128),
     (3, 6, 6, 32, 768, 256),
     (2, 6, 2, 32, 512, 256),
     (3, 8, 2, 64, 512, 128),
+    (2, 40, 8, 128, 512, 256),
 ]
 
 
@@ -115,7 +117,7 @@ def test_bf16_matches_pallas_ref_and_jnp(fn):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("g", [1, 2, 3, 4])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 5])
 def test_every_length_of_a_ragged_cache_matches_jnp(g, dtype):
     """S = 48 (the serve path's prompt + new tokens) is no multiple of the
     Pallas kernel's 512-position block, which asserts it; so these compare
@@ -135,6 +137,20 @@ def test_every_length_of_a_ragged_cache_matches_jnp(g, dtype):
                      R_REF.decode_attention(*jargs)):
             np.testing.assert_allclose(got, np.asarray(want, np.float32),
                                        rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("g,d,itemsize,want", [
+    (5, 128, 2, (8, 1)), (5, 128, 4, (8, 1)), (1, 128, 2, (1, 1)),
+    (2, 128, 2, (2, 1)), (3, 64, 4, (4, 1)), (16, 128, 2, (8, 2))])
+def test_group_plan_pads_a_group_to_the_next_block(g, d, itemsize, want):
+    """A group of query heads runs in the smallest block size that holds
+    it: Llama-4-Scout's G = 5 in one block of 8 with 3 heads idle. The
+    kernel loads a zero query for an idle head and writes heads
+    ``h0 + g`` for ``g < min(GT, G − gblk·GT)`` only (csrc: ``ng``), which
+    the card's test with a canary past the output checks."""
+    gt, n_gblk = FA.group_plan(g, d, itemsize)
+    assert (gt, n_gblk) == want
+    assert gt * n_gblk >= g > gt * (n_gblk - 1)
 
 
 def test_cpu_route_is_the_twin_and_counts_no_launch():
@@ -229,6 +245,9 @@ def cuda():
     # multiple of any tile or split), every length 1..S
     (4, 2, 2, 128, 37), (4, 4, 2, 64, 37), (4, 6, 2, 128, 37),
     (4, 8, 2, 32, 37), (4, 16, 2, 128, 37),
+    # the families' serve shapes: Llama-4-Scout (G = 5), Zamba2's shared
+    # block (G = 1) and InternVL2 (G = 2), every length 1..48
+    (4, 40, 8, 128, 48), (4, 32, 32, 128, 48), (4, 16, 8, 128, 48),
     # split in 2 (bf16) or 3 (f32) with a short last split, every length
     # 1..S: some splits empty, some partial
     (2, 4, 2, 256, 150)])
@@ -254,3 +273,40 @@ def test_cuda_kernel_matches_twin(cuda, dtype, b, h, hkv, d, s):
         assert torch.equal(FA.decode_attention(*args, ln), got)  # same bits
     torch.cuda.synchronize()            # the merge's tickets are zero again
     assert not any(bool(buf.any()) for buf in build._ZEROED.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [48, 4096])
+def test_cuda_idle_heads_write_nothing(cuda, dtype, s):
+    """G = 5 runs in blocks of 8 query heads, 3 idle: the kernel, called
+    with an output that is followed by canaries, writes exactly the B·H·D
+    outputs (an idle head of the last kv head would land past the end)."""
+    b, h, hkv, d = 4, 40, 8, 128
+    q, k, v, length = _inputs(b, h, hkv, d, s, seed=5)
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).to(cuda, tdt) for x in (q, k, v))
+    ln = torch.from_numpy(length).to(cuda)
+    p = FA.plan(b, h, hkv, d, s, q.element_size(), build.sm_count(0))
+    assert (p.gt, p.n_gblk) == (8, 1)
+    buf = torch.full((b * h * d + 8 * d,), float("nan"), dtype=tdt,
+                     device=cuda)
+    out = buf[:b * h * d]
+    part = ticket = None
+    if p.n_split > 1:
+        part = torch.empty(p.blocks(b, hkv) * p.gt * (d + 2),
+                           dtype=torch.float32, device=cuda)
+        ticket = build.zeroed_scratch("decode_attention", cuda,
+                                      p.pairs(b, hkv), build.stream_of(q))
+    code = FA._lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), ln.data_ptr(),
+                     out.data_ptr(), part.data_ptr() if part is not None
+                     else None, ticket.data_ptr() if ticket is not None
+                     else None, b, h, hkv, s, d, p.gt, p.n_gblk, p.chunk,
+                     p.n_split, FA._DTYPES[tdt], build.stream_of(q))
+    build.check_launch(code, "decode_attention")
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(buf[b * h * d:]).all())
+    want = FA.decode_attention_plain(q, k, v, ln)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    torch.testing.assert_close(out.view(b, h, d).float(), want.float(),
+                               rtol=tol, atol=tol)

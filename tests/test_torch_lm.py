@@ -75,20 +75,6 @@ def test_config_ids_and_aliases_resolve_the_same():
         assert T_CFG.get(alias) is T_CFG.get(arch)
 
 
-@pytest.mark.parametrize("arch", [a for a in R_CFG.ARCH_IDS
-                                  if R_CFG.get(a).family != "dense"])
-def test_other_families_raise_not_implemented(arch):
-    cfg = T_CFG.get(arch).smoke()
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        T_M.init_params(cfg, gen, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        T_M.init_cache(cfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        T_M.forward({}, {"tokens": torch.zeros(1, 4, dtype=torch.int32)},
-                    cfg, device="cpu")
-
-
 # --- layers ------------------------------------------------------------------
 
 def test_norm_rope_swiglu_match_reference():
