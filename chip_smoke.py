@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA card: the Track-A Caesar
-round on HAR (ragged, masked, error feedback with a bf16 pool), every
+round on HAR (ragged, masked, error feedback with a bf16 pool, and sharded
+over 4 ranks of a process group on the card), every
 scheme of the paper on its CIFAR-10 ResNet-18 at full width, the wire
 boundary (faults, robust aggregation) on ResNet-18, the capped client-state
 store with eviction and offload, checkpoint/resume of the simulator,
@@ -22,10 +23,10 @@ Phases, each of which fails the script on any error:
    and recover at every chunk rung 1, 2, 4, 8, 16, 17 (the chunk with
    error feedback) and 25, compress on the shared global vector and on x
    per row, at the round's thresholds and at edge ones: 0, +inf, one equal
-   to an |x|), with CUDA-event timings of kernel, plain version and, for
-   the histogram (at 1 and 25 rows), torch.histc as a yardstick, beside
-   the bytes bound at
-   3.35 TB/s; and each kernel's own device time (``kernel_only_ms``, from
+   to an |x|), with CUDA-event timings of kernel and plain version at
+   every rung (the sharded ranks' tier chunks run each of them) and, for
+   the histogram at 1 row, torch.histc as a yardstick, beside the bytes
+   bound at 3.35 TB/s; and each kernel's own device time (``kernel_only_ms``, from
    a torch.profiler window of CUDA activity), which also shows that one
    call launches one CUDA kernel (checked for every kernel);
 3b. kernels at the schemes path's widths: the same checks and timings at
@@ -72,6 +73,20 @@ Phases, each of which fails the script on any error:
    implies, and each kernel's launches per chunk rows must fall on the
    rungs phase 3 checked (so in every path below; 3b's at ResNet-18);
    then a profiled 1-round rerun for the time breakdown;
+6f. sharded round engine (one rank per shard of the client-state pool):
+   (a) the dense HAR point with ``sharded=True`` in a world of 1 (an NCCL
+   group of one rank in this process: the layout's world-of-1 path, in
+   which no collective runs), bit-identical to phase 6 (global vector,
+   History) with the same launches; (b) the same point on 4 ranks of a
+   gloo group (NCCL refuses two ranks on one card), all on cuda:0, started
+   with torch.multiprocessing's spawn and joined within a time limit —
+   every rank's History and round_log the same, its pool a segment of
+   exactly ``cap_per_shard`` rows on cuda:0, its launches those the tier
+   layout implies and on the rungs phase 3 checked, the global vector
+   finite and the same on every rank; walls per round beside the card's
+   name and power limit (4 ranks share one card: no scaling claim); (c)
+   phase 5's config on the 4 ranks, cuda against cpu, ragged and masked,
+   gated as phase 5 with the flips counted over every rank's selections;
 6a. modes path: the same point for 3 rounds each ragged f32, masked f32,
    and ragged with error feedback and a bf16 pool (chunk 17) — launches
    against ``kernel_launches()``, round walls, peak memory; then one round
@@ -185,9 +200,11 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
+import types
 
 # keep CUPTI set up between profiler sessions: torch's default tears it
 # down after each one, and a session that sets it up again now and then
@@ -439,11 +456,12 @@ def _scratch_zeroed(torch, build, after: str) -> None:
 
 
 def phase_kernels(torch, K, timer, n=N_PARAMS, rungs=RUNGS,
-                  hist_rows=(1, CHUNK), per_row_timed=(), timed=True):
+                  hist_rows=RUNGS, per_row_timed=(), timed=True):
     """Each compression kernel vs its plain version at a path's shapes:
     the histogram, compress and recover at every chunk rung in ``rungs``
     (the histogram timed at ``hist_rows``: the global model at 1 row, a
-    chunk of upload deltas); at the rungs in ``per_row_timed`` compress is
+    chunk of upload deltas; at n = 164,134 every rung, since the sharded
+    ranks' tier chunks launch it at every rung); at the rungs in ``per_row_timed`` compress is
     also timed on x per row at per-row thresholds (ProWD's upload) and run
     twice to show same-input calls bit-identical. Defaults: the dense HAR
     point (n = 164,134, drawn on the CPU); wider n are drawn on the card.
@@ -1435,6 +1453,247 @@ def phase_profile(torch, cfg, Simulator, wall_per_round):
                             "launches_per_round": ev.count}
                            for ev in kernels[:15]]}
     print("profile (dense HAR, per round): " + json.dumps(out))
+    return out
+
+
+# the sharded round engine: 4 ranks of a gloo group on one card (NCCL
+# refuses two ranks on one card), each holding its own pool segment
+SHARD_WORLD = 4
+SHARD_TIMEOUT_S = 300.0          # a rank that falls out of step fails
+SHARD_DEVS = ("cuda", "cpu")     # (c): the card against the plain versions
+SHARD_MODES = (("ragged", "step_ragged", {}),
+               ("masked", "step", {"ragged": False}))
+HISTORY_KEYS = ("rounds", "sim_time", "traffic_bits", "accuracy", "waiting",
+                "waiting_per_round")
+
+
+def _history(h) -> dict:
+    """A History's metric series (not its walls: each rank's own clock)."""
+    return {k: list(getattr(h, k)) for k in HISTORY_KEYS}
+
+
+def _parity_cfg(SimConfig, CaesarConfig, dev, **over):
+    """Phase 5's small HAR config (12 clients, τ 2, b_max 8, 3 rounds)."""
+    return SimConfig(dataset="har", scheme="caesar", n_clients=12,
+                     participation=0.25, rounds=3, data_scale=0.2, seed=1,
+                     eval_every=1, caesar=CaesarConfig(tau=2, b_max=8),
+                     device=dev, **over)
+
+
+def _shard_rank(rank, world, store, out_dir, main_cfg, init):
+    """One rank of phase 6f's world of 4 on cuda:0: (b) the dense HAR point
+    at full width, sharded, with its launch counts; (c) phase 5's config
+    on each of `SHARD_DEVS`, ragged and masked, with every
+    compress and top-k selection recorded (`_Masks`). Results go to
+    out_dir/rank<r>.pt."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.kernels as K
+    from repro_torch.core import compression as C
+    from repro_torch.core.caesar import CaesarConfig
+    from repro_torch.fl.simulation import SimConfig, Simulator
+    from repro_torch.launch import mesh as MESH
+    warnings.simplefilter("ignore", UserWarning)   # the cohort adjustment
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    MESH.init_distributed(f"file://{store}", world, rank, backend="gloo",
+                          timeout_s=SHARD_TIMEOUT_S / 2)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sim = Simulator(dataclasses.replace(main_cfg, sharded=True,
+                                        multi_host=True))
+    K.reset_launch_counts()
+    hist = sim.run()
+    counts, by_rows = K.launch_counts(), K.launch_counts_by_rows()
+    st = sim.store
+    out = {"b": {
+        "history": _history(hist), "wall_per_round_s": hist.wall_per_round,
+        "launches": counts, "launches_by_rows": by_rows,
+        "expect": sim.executor.kernel_launches(),
+        "pool_device": str(st.pool.device), "pool_rows": st.pool.shape[0],
+        "cap_per_shard": st.cap_per_shard, "row0": st.row0,
+        "n_dev": sim.n_dev, "p_shard": sim.executor.p_shard,
+        "chunk": sim.executor.chunk,
+        "global": sim.global_flat.detach().cpu(),
+        "round_log": sim.round_log,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}}
+    del sim, st
+    torch.cuda.empty_cache()
+    for mode, step, over in SHARD_MODES:
+        for i, dev in enumerate(SHARD_DEVS):
+            s = _Masks(C).install(Simulator(
+                _parity_cfg(SimConfig, CaesarConfig, dev, sharded=True,
+                            **over), init_flat=init), step)
+            h = s.run()
+            out[f"c_{mode}_{i}"] = {
+                "history": _history(h), "round_log": s.round_log,
+                "globals_per_round": s.globals_per_round,
+                "calls": s.masks.calls, "ends": s.masks.ends,
+                "n_dev": s.n_dev}
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+class _RankMasks:
+    """The masks of every rank's run as one `_Masks`: round r's calls are
+    rank 0's calls of round r, then rank 1's, … (each rank compresses its
+    own shard's rows)."""
+
+    def __init__(self, ranks: list):
+        self.ranks = ranks
+
+    def round_calls(self, r: int) -> list:
+        out = []
+        for calls, ends in self.ranks:
+            out += calls[(ends[r - 2] if r > 1 else 0):ends[r - 1]]
+        return out
+
+
+def _same_logs_all(what, logs) -> None:
+    import numpy as np
+    for r, log in enumerate(logs[1:], 1):
+        check(len(log) == len(logs[0]), f"{what}: rank {r}'s round_log "
+              "length differs")
+        for a, b in zip(log, logs[0]):
+            for k in a:
+                check(bool(np.all(np.asarray(a[k]) == np.asarray(b[k]))),
+                      f"{what}: rank {r}'s round_log {k} differs from "
+                      "rank 0's")
+
+
+def phase_sharded(torch, K, SimConfig, Simulator, CaesarConfig, twins,
+                  main_counts, smi):
+    """(a) The dense HAR point sharded in a world of 1 (an NCCL group of
+    one rank in this process; a world of 1 makes no collective, so this
+    checks the layout's world-of-1 path, not NCCL): global vector and History bit-identical to phase 6's
+    unsharded run, launches equal. (b) The same point on 4 gloo ranks on
+    cuda:0: every rank's History and round_log the same, its pool a
+    segment of exactly cap_per_shard rows on cuda:0, its launches those
+    `kernel_launches` implies and on the rungs phase 3 held against the
+    plain versions, the global vector finite and the same on every rank.
+    (c) Phase 5's config on the 4 ranks, cuda against cpu, ragged and
+    masked: participants, plans, sim_time and waiting exact; the global
+    vector gated round by round as phase 5 (`_gate_rounds`), the flips
+    counted over every rank's selections."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as MESH
+    work = os.path.join(ROOT, "build", "sharded")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = {}
+    # (a) a world of 1
+    main_cfg = _main_cfg(SimConfig, CaesarConfig)
+    MESH.init_distributed(f"file://{work}/pg_world1", 1, 0, backend="nccl")
+    try:
+        cfg = dataclasses.replace(main_cfg, sharded=True)
+        sim = Simulator(cfg)
+        check(sim.n_dev == 1 and sim.layout.group is not None,
+              "the world of 1 is not a process group")
+        K.reset_launch_counts()
+        hist = sim.run()
+        counts = K.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    g0, h0 = twins["dense"]
+    check(torch.equal(sim.global_flat.cpu(), g0),
+          "sharded world of 1: global vector differs from the unsharded run")
+    check(_history(hist) == _history(h0),
+          "sharded world of 1: History differs from the unsharded run")
+    check(counts == main_counts, f"sharded world of 1: launches {counts} "
+          f"!= the unsharded run's {main_counts}")
+    out["world1"] = {"bit_identical": True, "launches": counts,
+                     "wall_per_round_s": hist.wall_per_round}
+    del sim
+    torch.cuda.empty_cache()
+
+    # (b) and (c): a world of 4 gloo ranks on cuda:0
+    from repro_torch.models.paper_models import cnn_har_init
+    init = cnn_har_init(torch.Generator().manual_seed(1))
+    t0 = time.perf_counter()
+    MESH.spawn(_shard_rank, SHARD_WORLD,
+               (SHARD_WORLD, f"{work}/pg_world4", work, main_cfg, init),
+               timeout_s=SHARD_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                        weights_only=False) for r in range(SHARD_WORLD)]
+    b0 = ranks[0]["b"]
+    for r, res in enumerate(ranks):
+        b = res["b"]
+        check(b["history"] == b0["history"],
+              f"sharded 4 ranks: rank {r}'s History differs from rank 0's")
+        check(torch.equal(b["global"], b0["global"]),
+              f"sharded 4 ranks: rank {r}'s global vector differs")
+        check((b["n_dev"], b["pool_device"]) == (SHARD_WORLD, "cuda:0")
+              and b["pool_rows"] == b["cap_per_shard"]
+              and b["row0"] == r * b["cap_per_shard"],
+              f"sharded 4 ranks: rank {r}'s pool is not its segment of "
+              f"{b['cap_per_shard']} rows on cuda:0: {b['pool_rows']} "
+              f"rows from slot {b['row0']} on {b['pool_device']}")
+        for name, want in b["expect"].items():
+            check(b["launches"][name] == want > 0,
+                  f"sharded 4 ranks: rank {r} launched {name} "
+                  f"{b['launches'][name]} times, the layout implies {want}")
+        _check_rows(f"sharded rank {r}", b["launches"],
+                    b["launches_by_rows"], RUNGS)
+    _same_logs_all("sharded 4 ranks", [res["b"]["round_log"]
+                                       for res in ranks])
+    check(bool(torch.isfinite(b0["global"]).all()),
+          "sharded 4 ranks: non-finite global vector")
+    walls = [res["b"]["wall_per_round_s"] for res in ranks]
+    out["world4_dense"] = {
+        "card": smi, "note": "4 ranks share one card: these walls say "
+        "nothing of scaling across cards",
+        "spawn_s": spawn_s, "p_shard": b0["p_shard"], "chunk": b0["chunk"],
+        "cap_per_shard": b0["cap_per_shard"],
+        "wall_per_round_s_by_rank": walls,
+        "wall_per_round_s_max": [max(w) for w in zip(*walls)],
+        "launches_per_rank": b0["launches"],
+        "launches_by_rows_rank0": b0["launches_by_rows"],
+        "accuracy": b0["history"]["accuracy"],
+        "traffic_bits": b0["history"]["traffic_bits"],
+        "sim_time": b0["history"]["sim_time"],
+        "peak_mem_gb_by_rank": [res["b"]["peak_mem_gb"] for res in ranks]}
+    print(f"sharded 4 ranks on one card ({smi}): wall per round (max over "
+          f"ranks) {out['world4_dense']['wall_per_round_s_max']} s — 4 ranks "
+          "share one card, so this says nothing of scaling across cards")
+
+    # (c) cuda against cpu on the 4 ranks
+    for mode, _step, _over in SHARD_MODES:
+        runs = {}
+        for i, dev in enumerate(SHARD_DEVS):
+            per = [res[f"c_{mode}_{i}"] for res in ranks]
+            check(all(p["n_dev"] == SHARD_WORLD for p in per),
+                  f"sharded {mode} {dev}: not a world of {SHARD_WORLD}")
+            check(all(p["history"] == per[0]["history"] for p in per),
+                  f"sharded {mode} {dev}: the ranks' Histories differ")
+            _same_logs_all(f"sharded {mode} {dev}",
+                           [p["round_log"] for p in per])
+            runs[i] = types.SimpleNamespace(
+                round_log=per[0]["round_log"],
+                globals_per_round=per[0]["globals_per_round"],
+                masks=_RankMasks([(p["calls"], p["ends"]) for p in per]),
+                history=per[0]["history"])
+        sg, sc = runs[0], runs[1]
+        for a, b in zip(sg.round_log, sc.round_log):
+            check((a["parts"] == b["parts"]).all(),
+                  f"sharded {mode}: participants differ cuda vs cpu")
+            for k in ("theta_d", "theta_u", "batch", "taus"):
+                check((a[k] == b[k]).all(), f"sharded {mode} round "
+                      f"{a['round']}: plan {k} differs cuda vs cpu")
+        check(sg.history["sim_time"] == sc.history["sim_time"]
+              and sg.history["waiting"] == sc.history["waiting"],
+              f"sharded {mode}: sim_time or waiting differ cuda vs cpu")
+        rounds = _gate_rounds(torch, f"sharded {mode}", sg, sc,
+                              PARITY_ROUND1_REL_L2, PARITY_REL_L2, "caesar")
+        out[f"world4_parity_{mode}"] = {
+            "per_round": rounds, "acc_cuda": sg.history["accuracy"],
+            "acc_cpu": sc.history["accuracy"]}
+    shutil.rmtree(work, ignore_errors=True)
+    print("sharded: " + json.dumps(out))
     return out
 
 
@@ -2987,6 +3246,8 @@ def main() -> int:
         CaesarConfig, twins)
     prof = timed("round_profile", phase_profile, torch, cfg, Simulator,
                  main_out["wall_per_round_s"])
+    sharded = timed("sharded", phase_sharded, torch, K, SimConfig, Simulator,
+                    CaesarConfig, twins, counts, smi)
     modes_path = timed("modes_path", phase_modes_path, torch, K, SimConfig,
                        Simulator, CaesarConfig)
     schemes = timed("schemes_path", phase_schemes, torch, K, SimConfig,
@@ -3060,6 +3321,10 @@ def main() -> int:
                 if (key, 1) in tbres[n]}})
         if name in by_rows:
             kernels[-1]["launches_by_rows"] = by_rows[name]
+        w4 = sharded["world4_dense"]
+        kernels[-1]["launches_sharded_per_rank"] = {
+            "launches": w4["launches_per_rank"][name],
+            "by_rows_rank0": w4["launches_by_rows_rank0"][name]}
     r = dres["serve"]
     kernels.append({
         "name": "decode_attention", "route": "cuda",
@@ -3091,7 +3356,7 @@ def main() -> int:
                                          for k, v in cres.items()},
                    "decode_all_shapes": dres,
                    "parity": parity, "modes_parity": modes_parity,
-                   "main": main_out, "profile": prof,
+                   "main": main_out, "profile": prof, "sharded": sharded,
                    "modes_path": modes_path, "wire_path": wire,
                    "schemes": schemes, "schemes_profile": schemes_prof,
                    "serve": serve, "kernels_track_b": {

@@ -1,9 +1,9 @@
 """Pipelined round driver for Track A (paper Algorithm 1) — the port of
 ``repro.fl.driver`` for every scheme (Caesar and the baselines of
 `repro_torch.fl.baselines`), on the plan-shaped (ragged) or uniform-cap
-(masked) engine, with an f32 or bf16 pool, optional error feedback, and
-the wire boundary (serialized uploads, faults, robust aggregation) and
-diurnal availability.
+(masked) engine, with an f32 or bf16 pool, optional error feedback, the
+wire boundary (serialized uploads, faults, robust aggregation), diurnal
+availability, and sharded over a ``torch.distributed`` world.
 
 * `SimConfig` — the simulation config (the reference's, with ``backend``
   replaced by ``device``);
@@ -44,13 +44,28 @@ counters and the wire state — deferred uploads, ``fault_log``,
 of the same config takes it through `load_state_dict` and
 ``run(start_round=t_done + 1)`` replays the tail bit for bit.
 
-Sharding (``sharded``, ``multi_host``) raises ``NotImplementedError``
-naming ROADMAP queue 1 item 13; no configuration is silently ignored.
+Sharding (``sharded``; DESIGN.md §7): the client-state pool and the
+participant chunks are split over the 1-D "data" layout of
+`repro_torch.launch.mesh`, one rank per shard — the ranks of the process
+group when one is up (``multi_host=True`` brings it up from the torchrun
+environment, `mesh.init_distributed`), else a world of 1, which runs
+exactly the unsharded path. Every rank runs this same-seed host loop
+(draws, planning, batch gathers, accounting), participants are drawn
+stratified per shard (``p_shard`` from each shard's clients; with one
+shard the draw is the uniform one), the cohort is cut to a multiple of the
+shard count (with the reference's warning), and each rank holds only its
+own pool segment on its own device (``cuda:{LOCAL_RANK % cards}``). The
+global model is replicated, and the History and ``round_log`` come out the
+same on every rank (``wall*`` and ``compile_s`` are each rank's own
+clock). The wire engine and diurnal availability are single-mesh, as in
+the reference; `state_dict` gathers the pool from every rank, so every
+rank calls it.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional
 
@@ -72,6 +87,7 @@ from repro_torch.fl.capability import CapabilityModel
 from repro_torch.fl.executor import RoundExecutor, TierGroup
 from repro_torch.fl.planner import RoundPlanner
 from repro_torch.fl.state import ClientStateStore
+from repro_torch.launch import mesh as MESH
 from repro_torch.models import paper_models as PM
 from repro_torch.optim import sgd as SGD
 
@@ -147,25 +163,30 @@ class SimConfig:
     # record ||restored − true|| / ||true|| at every centroid restore
     # (executor.telemetry()["restore_error"])
     measure_eviction_error: bool = False
-    # --- not ported yet: non-default values raise NotImplementedError
-    sharded: bool = False                # ROADMAP 1 item 13
-    multi_host: bool = False             # ROADMAP 1 item 13
+    # shard the client-state pool and the participant chunks over the
+    # "data" layout, one rank of the process group per shard (a world of 1
+    # without one); n_clients must divide over the shards, and participants
+    # are drawn stratified per shard
+    sharded: bool = False
+    # bring up torch.distributed from the torchrun environment
+    # (launch.mesh.init_distributed) before building the layout; requires
+    # sharded=True; without a multi-process runtime it warns and runs in
+    # a world of 1
+    multi_host: bool = False
 
 
 def _check_slice(cfg: SimConfig) -> None:
-    """Raise for every configuration this slice does not run."""
-    def nope(what, item):
-        raise NotImplementedError(
-            f"{what} is not ported to repro_torch yet (ROADMAP queue 1 item "
-            f"{item})")
+    """Raise for every configuration the simulator does not run, with the
+    reference's exception types and messages."""
+    if cfg.multi_host and not cfg.sharded:
+        raise ValueError("multi_host=True requires sharded=True (the "
+                         "multi-host mesh is the sharded 'data' axis)")
     if cfg.scheme != "caesar" and cfg.scheme not in BL.POLICIES:
         raise ValueError(f"unknown scheme {cfg.scheme!r}; want caesar or "
                          f"one of {sorted(BL.POLICIES)}")
     if cfg.state_offload not in ST.STATE_OFFLOADS:
         raise ValueError(f"unknown state_offload {cfg.state_offload!r}; "
                          f"want one of {ST.STATE_OFFLOADS}")
-    if cfg.sharded or cfg.multi_host:
-        nope("sharded / multi_host execution", 13)
     if cfg.wire not in ("inproc", "loopback", "queue"):
         raise ValueError(f"unknown wire {cfg.wire!r} "
                          "(want inproc|loopback|queue)")
@@ -183,6 +204,14 @@ def _check_slice(cfg: SimConfig) -> None:
         if not cfg.ragged:
             raise ValueError("the wire engine requires ragged=True (it "
                              "replays the tier-chunk stream)")
+        if cfg.sharded:
+            raise ValueError("the wire engine is single-mesh "
+                             "(set sharded=False)")
+    if cfg.availability.enabled() and cfg.sharded:
+        raise ValueError(
+            "diurnal availability is single-mesh (the stratified shard "
+            "draw has no per-shard forced-wake story yet); set "
+            "sharded=False")
     model = cfg.model or PM.DATASET_MODEL.get(cfg.dataset)
     if model not in PM.MODELS:
         raise ValueError(f"unknown model {model!r} for dataset "
@@ -268,6 +297,19 @@ class Simulator:
         _check_slice(cfg)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
+        if cfg.multi_host and not MESH.init_distributed(
+                device=self.device):
+            # N processes simulating in isolation would look like a
+            # successful multi-process run: say so
+            warnings.warn(
+                "multi_host=True but no multi-process torch.distributed "
+                "runtime was detected; running in a world of 1",
+                stacklevel=2)
+        self.layout = (MESH.make_data_group(self.device) if cfg.sharded
+                       else None)
+        self.n_dev = 1 if self.layout is None else self.layout.world
+        if self.layout is not None:
+            self.device = self.layout.device
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -305,7 +347,19 @@ class Simulator:
         self.volumes = volumes
         self.label_dist = label_dist
         self.cap = CapabilityModel(cfg.n_clients, cfg.seed)
-        self.n_part = max(1, int(round(cfg.participation * cfg.n_clients)))
+        if cfg.n_clients % self.n_dev:
+            raise ValueError(f"n_clients ({cfg.n_clients}) must divide over "
+                             f"{self.n_dev} shards")
+        n_part = max(1, int(round(cfg.participation * cfg.n_clients)))
+        # sharded rounds need equal per-shard cohorts
+        self.n_part = max(self.n_dev, (n_part // self.n_dev) * self.n_dev)
+        if self.n_part != n_part:
+            warnings.warn(
+                f"sharded mode adjusted the cohort from {n_part} to "
+                f"{self.n_part} participants/round ({self.n_dev} shards "
+                "need equal per-shard cohorts); pick a participation whose "
+                "cohort divides the device count to silence this",
+                stacklevel=2)
         self.policy = (None if cfg.scheme == "caesar"
                        else self._make_policy(cfg.scheme))
         self.planner = RoundPlanner(cfg, volumes, label_dist, self.model_bits,
@@ -313,7 +367,7 @@ class Simulator:
         self.executor = RoundExecutor(
             cfg, self.apply_fn, self.spec, self.n_part, self.device,
             quantize=bool(getattr(self.policy, "quantize", False)),
-            use_ef=cfg.caesar.use_error_feedback)
+            use_ef=cfg.caesar.use_error_feedback, layout=self.layout)
         self.store: Optional[ClientStateStore] = None
         self.round_log: list = []
         # --- wire boundary: persistent attacker set and the aggregator
@@ -376,7 +430,8 @@ class Simulator:
             cfg.n_clients, self.n_params, self.flat0,
             capacity=cfg.state_capacity, cohort=self.n_part,
             device=self.device, ef_width=self.executor.ef_width,
-            dtype=self.executor.buf_dtype, offload=cfg.state_offload,
+            dtype=self.executor.buf_dtype, n_shards=self.n_dev,
+            layout=self.layout, offload=cfg.state_offload,
             offload_dir=cfg.state_dir, volumes=self.volumes,
             measure_restore_error=cfg.measure_eviction_error)
 
@@ -400,13 +455,21 @@ class Simulator:
     def _select_participants(self, rng: np.random.Generator, t: int
                              ) -> tuple[np.ndarray, int, int]:
         """Round t's cohort draw → (parts, n_eligible, n_forced): a uniform
-        draw without replacement over every client ("always"), or over the
-        round's eligible set (diurnal availability), force-waking the
-        shortfall uniformly from the offline clients when fewer are online
-        than the cohort needs — the reference's draw, byte-identical."""
-        n = self.cfg.n_clients
+        draw without replacement over every client ("always"; stratified
+        per shard when sharded, each shard's ``n_part / D`` from its own
+        clients, shard-major), or over the round's eligible set (diurnal
+        availability), force-waking the shortfall uniformly from the
+        offline clients when fewer are online than the cohort needs — the
+        reference's draw, byte-identical."""
+        n, d = self.cfg.n_clients, self.n_dev
         if not self._avail_on:
-            return rng.choice(n, self.n_part, replace=False), n, 0
+            if d <= 1:
+                return rng.choice(n, self.n_part, replace=False), n, 0
+            rows, ps = n // d, self.n_part // d
+            return np.concatenate([
+                rng.choice(np.arange(s * rows, (s + 1) * rows), ps,
+                           replace=False)
+                for s in range(d)]), n, 0
         mask = AV.eligible_mask(self.cfg.availability, self.cfg.seed, t, n,
                                 self._avail_phases)
         el = np.flatnonzero(mask)
@@ -744,8 +807,8 @@ class Simulator:
         return new_global, db_o, up_eff, gn_o, wire_bytes
 
     def _init_global(self) -> torch.Tensor:
-        """Fresh [n_params] f32 global vector on the device (`flat0` itself
-        stays intact)."""
+        """Fresh [n_params] f32 global vector on the device — sharded, a
+        replica on this rank's device (`flat0` itself stays intact)."""
         return self.flat0.to(self.device, copy=True)
 
     # ------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Execution layer of the Track-A round engine — the port of
-``repro.fl.executor``'s unsharded paths, for every scheme.
+``repro.fl.executor``, for every scheme, unsharded or sharded.
 
 **Ragged** (default): the host groups the round's participants by
 quantized (b, τ) tier (`TierGroup`); `step_ragged` walks the tiers in
@@ -46,7 +46,27 @@ round to nearest even. The error-feedback pool stays f32.
 stream, but each chunk's raw uploads come back for the server to decode
 and aggregate (`repro_torch.fl.robust`), and a row-adoption mask keeps the
 pre-round pool and residual rows of participants the server never
-aggregates. Sharding is not ported yet (the simulator raises for it).
+aggregates (unsharded only, as in the reference).
+
+**Sharded** (``layout``, a `repro_torch.launch.mesh.DataGroup` of D
+ranks): one rank per shard of the "data" layout, every rank running this
+executor on the same host inputs. The round's participants are stratified
+(``p_shard`` per shard, checked), the chunk comes from
+``auto_chunk(n_params, p_shard, …)``, and each rank runs only its own
+shard's rows: in a ragged round each tier's members are regrouped
+shard-major and padded to a common rung decomposition (tier membership
+comes from capability, not from the shard, so per-shard counts differ and
+a rank may own no valid row of a chunk; it still makes the call), so every
+rank makes the same chunk calls with the same seeds, each over its own
+``c`` rows of the ``[D·c]`` chunk; a masked round runs each shard's
+``p_shard`` participants over `chunk_layout(p_shard, chunk)`. Each rank
+folds its uploads into a partial sum; `fixed_order_sum` adds the partials
+in rank order and `_finalize` applies the mean on every rank, so the global
+vector stays replicated bit for bit. Padding rows carry the out-of-range
+slot and a zero mask, gather a clamped row of the rank's own segment, and
+are never written (only each rank's valid prefix of a chunk is scattered).
+The per-participant outputs are all-gathered once at the end of the round
+(`_readback`). A world of 1 runs exactly the unsharded path.
 """
 from __future__ import annotations
 
@@ -60,6 +80,7 @@ from repro_torch.core import batchsize as BS
 from repro_torch.core import compression as C
 from repro_torch.core import rng as RNG
 from repro_torch.fl.robust import weighted_row_fold
+from repro_torch.launch import mesh as MESH
 
 BUFFER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # extra f32 [chunk, n_params] arrays the EF carry keeps live in the chunk
@@ -90,7 +111,8 @@ class RoundExecutor:
     turns on the error-feedback residual (``ef_width = n_params``, else 0)."""
 
     def __init__(self, cfg, apply_fn, spec: C.FlatSpec, n_part: int,
-                 device, quantize: bool = False, use_ef: bool = False):
+                 device, quantize: bool = False, use_ef: bool = False,
+                 layout: MESH.DataGroup | None = None):
         self.cfg = cfg
         self.apply_fn = apply_fn
         self.spec = spec
@@ -107,18 +129,30 @@ class RoundExecutor:
         self.buf_dtype = BUFFER_DTYPES[cfg.buffer_dtype]
         self.use_sr = (self.buf_dtype == torch.bfloat16
                        and cfg.stochastic_round)
+        # the "data" layout: None unsharded; one rank per shard when sharded
+        self.layout = layout
+        self.n_dev = 1 if layout is None else layout.world
+        self.rank = 0 if layout is None else layout.rank
+        if n_part % self.n_dev:
+            raise ValueError(f"participants ({n_part}) must divide evenly "
+                             f"over {self.n_dev} shards")
+        self.n_clients = cfg.n_clients
+        self.rows_per_shard = self.n_clients // self.n_dev
+        self.p_shard = n_part // self.n_dev
         chunk_size = cfg.chunk_size
         if chunk_size is None:
             chunk_size = C.auto_chunk(
-                spec.n_params, n_part, cfg.chunk_budget_mb,
+                spec.n_params, self.p_shard, cfg.chunk_budget_mb,
                 extra_arrays=EF_EXTRA_ARRAYS if self.use_ef else 0.0)
-        self.chunk = C.chunk_layout(n_part, chunk_size)[0]
+        self.chunk, _, self.n_chunks = C.chunk_layout(self.p_shard,
+                                                      chunk_size)
         self.b_cap, self.tau_cap = cfg.caesar.b_max, cfg.caesar.tau
         self.b_min = cfg.caesar.b_min
         # telemetry: cumulative per-tier participant counts, the distinct
-        # tier-chunk shapes run, plan-shaped vs cap work, and the number of
-        # chunk steps and rounds (`kernel_launches` turns them into the
-        # launches of each kernel)
+        # tier-chunk shapes run (per shard), plan-shaped vs cap work (rows
+        # executed over every shard), and the number of this rank's chunk
+        # steps and rounds (`kernel_launches` turns them into the launches
+        # of each kernel on this rank)
         self.tier_occupancy: dict = {}
         self._shapes_seen: set = set()
         self.work_ragged = 0
@@ -273,8 +307,11 @@ class RoundExecutor:
         ``wmask`` [c] (device) is the row-adoption mask: rows where it is 0
         rewrite their gathered pool and residual values (an SR fixed point,
         so unchanged). Returns the raw uploads [c, n_params] for the fold."""
-        idx = torch.from_numpy(np.minimum(slots, store.capacity - 1)
-                               .astype(np.int64)).to(self.device)
+        # slots → rows of this rank's segments; the pad slot (capacity)
+        # clamps to the last owned row, gathered but never written
+        idx = torch.from_numpy(np.minimum(
+            slots.astype(np.int64) - store.row0,
+            store.pool.shape[0] - 1)).to(self.device)
         local = store.pool.index_select(0, idx).to(torch.float32)
         ef = store.ef_pool.index_select(0, idx) if self.use_ef else None
         ups, new_rows, new_ef, db, ub, gn = self.participant_round(
@@ -305,18 +342,49 @@ class RoundExecutor:
 
     # -- host-side marshalling ----------------------------------------------
 
+    def _resolve_slots(self, store, parts: np.ndarray, t: int) -> np.ndarray:
+        """Activate the round's participants in the store (main thread) and,
+        sharded, check the stratification. Returns the slots [P] int32."""
+        self._last_store = store
+        parts = np.asarray(parts)
+        if self.n_dev > 1:
+            counts = np.bincount(parts // self.rows_per_shard,
+                                 minlength=self.n_dev)
+            if not (counts == self.p_shard).all():
+                raise ValueError(
+                    "sharded mode needs stratified participants "
+                    f"({self.p_shard} per shard; got {counts.tolist()})")
+        return store.prepare(parts, t)
+
     def _tier_chunks(self, tg: TierGroup, slots32: np.ndarray,
-                     theta_d: np.ndarray, theta_u: np.ndarray, pad_idx: int):
-        """Yield (positions, n_valid, host-input dict) per tier chunk:
-        zero-copy views over the (already rung-padded) tier arrays; padding
-        rows carry the out-of-range slot ``pad_idx`` and zero ratios."""
+                     theta_d: np.ndarray, theta_u: np.ndarray, pad_idx: int,
+                     cap_per_shard: int):
+        """Yield (positions by rank, this rank's host-input dict) per tier
+        chunk. ``positions by rank`` holds, for every rank, the parts
+        positions of its valid rows (a prefix of its ``c`` rows); padding
+        rows carry the out-of-range slot ``pad_idx`` and zero ratios.
+        Unsharded: zero-copy views over the (already rung-padded) tier
+        arrays. Sharded: the tier's members regrouped by shard and padded
+        to a rung decomposition common to every shard (the reference's)."""
         g = len(tg.pos)
-        for s, c in tg.slices:
-            pos_c = tg.pos[s:min(s + c, g)]
-            yield pos_c, len(pos_c), self._chunk_inputs(
-                pos_c, c, slots32, theta_d, theta_u, pad_idx,
-                tg.xs[s:s + c], tg.ys[s:s + c], tg.ws[s:s + c],
-                tg.ims[s:s + c])
+        if self.n_dev == 1:
+            for s, c in tg.slices:
+                pos_c = tg.pos[s:min(s + c, g)]
+                yield [pos_c], self._chunk_inputs(
+                    pos_c, c, slots32, theta_d, theta_u, pad_idx,
+                    tg.xs[s:s + c], tg.ys[s:s + c], tg.ws[s:s + c],
+                    tg.ims[s:s + c])
+            return
+        owner = slots32[tg.pos] // cap_per_shard
+        iloc = [np.flatnonzero(owner == s) for s in range(self.n_dev)]
+        _, slices = self.tier_layout(max(len(il) for il in iloc))
+        for s, c in slices:
+            by_rank = [tg.pos[il[s:s + c]] for il in iloc]
+            mine = iloc[self.rank][s:s + c]
+            yield by_rank, self._chunk_inputs(
+                by_rank[self.rank], c, slots32, theta_d, theta_u, pad_idx,
+                *(_pad_rows(a[mine], c) for a in (tg.xs, tg.ys, tg.ws,
+                                                  tg.ims)))
 
     @staticmethod
     def _chunk_inputs(pos_c, c, slots32, theta_d, theta_u, pad_idx, xs, ys,
@@ -354,18 +422,23 @@ class RoundExecutor:
 
     def _tier_stream(self, global_f, store, slots32, tiers: list, lr,
                      theta_d, theta_u, t: int, wm=None):
-        """Run every tier chunk in processing order; yield (positions,
-        n_valid, chunk rows, pmask, uploads, [3, c] per-row outputs)."""
+        """Run every tier chunk in processing order; yield (positions by
+        rank, c, pmask, uploads, [3, c] per-row outputs) for this rank's
+        rows of each chunk."""
         g_cdf, g_max = self._hist(global_f)
         call_i = 0
         for tg in tiers:
             key = (int(tg.b), int(tg.tau))
             self.tier_occupancy[key] = (self.tier_occupancy.get(key, 0)
                                         + len(tg.pos))
-            for pos_c, v, a in self._tier_chunks(tg, slots32, theta_d,
-                                                 theta_u, store.capacity):
+            for by_rank, a in self._tier_chunks(
+                    tg, slots32, theta_d, theta_u, store.capacity,
+                    store.cap_per_shard):
                 c = len(a["parts"])
-                self.work_ragged += c * tg.tau * tg.b
+                pos_c = by_rank[self.rank]
+                v = len(pos_c)
+                # the rows executed over every shard
+                self.work_ragged += self.n_dev * c * tg.tau * tg.b
                 self._shapes_seen.add((c, int(tg.tau), int(tg.b)))
                 wm_c = None
                 if wm is not None:
@@ -374,20 +447,31 @@ class RoundExecutor:
                 ups, outs = self._run_chunk(store, global_f, g_cdf, g_max, a,
                                             v, lr, call_i, t, wm_c)
                 call_i += 1
-                yield pos_c, v, c, a["pmask"], ups, outs
+                yield by_rank, c, a["pmask"], ups, outs
 
-    @staticmethod
-    def _readback(n: int, pend: list):
-        """The per-participant outputs in parts order, as numpy: one copy of
-        every chunk's [3, c] outputs — after every chunk step has been
-        queued, so it drains the device queue (the round's one host sync)."""
-        outs = torch.cat([o for _, _, o in pend], dim=1).cpu().numpy()
+    def _readback(self, n: int, pend: list):
+        """The per-participant outputs in parts order, as numpy: one
+        all-gather of every rank's [3, Σc] chunk outputs (a plain copy in a
+        world of 1) — after every chunk step has been queued, so it drains
+        the device queue (the round's one host sync). ``pend`` holds
+        (positions by rank, c, outputs) per chunk."""
+        own = torch.cat([o for _, _, o in pend], dim=1)
+        outs = torch.stack(MESH.fetch_global(own, self.layout)).cpu().numpy()
         res = np.empty((3, n), np.float32)
-        col = 0
-        for pos_c, v, o in pend:
-            res[:, pos_c] = outs[:, col:col + v]
-            col += o.shape[1]
+        for r in range(self.n_dev):
+            col = 0
+            for by_rank, c, _ in pend:
+                pos = by_rank[r]
+                res[:, pos] = outs[r, :, col:col + len(pos)]
+                col += c
         return res[0], res[1], res[2]
+
+    def _sum_shards(self, global_f, up_sum, n: int):
+        """Algorithm 1 line 13 over every shard: the ranks' partial upload
+        sums in rank order, then the mean over the round's ``n``
+        participants (every rank's valid rows, known on every host)."""
+        return self._finalize(global_f, MESH.fixed_order_sum(up_sum,
+                                                             self.layout), n)
 
     def step_ragged(self, global_f, store, parts: np.ndarray, tiers: list,
                     lr, theta_d, theta_u, t: int = 0):
@@ -396,19 +480,18 @@ class RoundExecutor:
         gnorms [P]) with per-participant outputs as numpy arrays in the
         caller's ``parts`` order; the updated rows land in ``store.pool``."""
         n = len(parts)
-        slots32 = store.prepare(np.asarray(parts), t)
-        self._last_store = store
+        slots32 = self._resolve_slots(store, parts, t)
         up_sum = torch.zeros(self.spec.n_params, dtype=torch.float32,
                              device=self.device)
         lr = lr.to(self.device)
         pend = []
-        for pos_c, v, _c, pm, ups, outs in self._tier_stream(
+        for by_rank, c, pm, ups, outs in self._tier_stream(
                 global_f, store, slots32, tiers, lr, theta_d, theta_u, t):
             weighted_row_fold(up_sum, ups, self._dev(pm))
-            pend.append((pos_c, v, outs))
+            pend.append((by_rank, c, outs))
         self.work_cap += n * self.tau_cap * self.b_cap
         self.rounds += 1
-        new_global = self._finalize(global_f, up_sum, n)
+        new_global = self._sum_shards(global_f, up_sum, n)
         return (new_global, *self._readback(n, pend))
 
     def step_ragged_deferred(self, global_f, store, parts: np.ndarray,
@@ -425,52 +508,69 @@ class RoundExecutor:
         stragglers, twice-corrupted payloads) keep their pre-round pool and
         residual rows. Returns (chunks, down_bits, up_bits, gnorms) with
         ``chunks`` the ordered list of (positions, valid rows, c, uploads)
-        the server replays."""
+        the server replays. Unsharded only: the wire boundary serializes
+        per client, and a sharded one would need a server per shard."""
+        if self.layout is not None:
+            raise NotImplementedError("the wire-boundary round is "
+                                      "single-mesh (set sharded=False)")
         n = len(parts)
         wm = (np.ones(n, np.float32) if wmask is None
               else np.asarray(wmask, np.float32))
-        slots32 = store.prepare(np.asarray(parts), t)
-        self._last_store = store
+        slots32 = self._resolve_slots(store, parts, t)
         lr = lr.to(self.device)
         chunks, pend = [], []
-        for pos_c, v, c, _pm, ups, outs in self._tier_stream(
+        for by_rank, c, _pm, ups, outs in self._tier_stream(
                 global_f, store, slots32, tiers, lr, theta_d, theta_u, t,
                 wm=wm):
-            chunks.append((pos_c, np.arange(v), c, ups))
-            pend.append((pos_c, v, outs))
+            pos_c = by_rank[0]
+            chunks.append((pos_c, np.arange(len(pos_c)), c, ups))
+            pend.append((by_rank, c, outs))
         self.work_cap += n * self.tau_cap * self.b_cap
         self.rounds += 1
         return (chunks, *self._readback(n, pend))
 
     def step(self, global_f, store, parts: np.ndarray, xs, ys, ws, ims, lr,
              theta_d, theta_u, t: int = 0):
-        """Run one MASKED round at the [τ, b_max] cap over fixed chunks
-        (`chunk_layout`; the last one padded to the chunk size). Same
-        return contract as `step_ragged`."""
+        """Run one MASKED round at the [τ, b_max] cap over fixed chunks of
+        each shard's participants (`chunk_layout`; the last one padded to
+        the chunk size). Same return contract as `step_ragged`."""
         n = len(parts)
-        slots32 = store.prepare(np.asarray(parts), t)
-        self._last_store = store
+        slots32 = self._resolve_slots(store, parts, t)
         g_cdf, g_max = self._hist(global_f)
         up_sum = torch.zeros(self.spec.n_params, dtype=torch.float32,
                              device=self.device)
         lr = lr.to(self.device)
-        chunk, p_pad, n_chunks = C.chunk_layout(n, self.chunk)
+        # each shard's participants in parts order (stratified draws come
+        # shard-major, so these are contiguous runs of parts)
+        order = np.argsort(np.asarray(parts) // self.rows_per_shard,
+                           kind="stable")
+        shard_pos = order.reshape(self.n_dev, self.p_shard)
+        chunk = self.chunk
         pend = []
-        for i in range(n_chunks):
+        for i in range(self.n_chunks):
             s = i * chunk
-            pos_c = np.arange(s, min(s + chunk, n))
-            arrs = [_pad_rows(a[s:s + chunk], chunk) for a in (xs, ys, ws,
-                                                               ims)]
+            by_rank = [p[s:s + chunk] for p in shard_pos]
+            pos_c = by_rank[self.rank]
+            arrs = [_pad_rows(_take_rows(a, pos_c), chunk)
+                    for a in (xs, ys, ws, ims)]
             a = self._chunk_inputs(pos_c, chunk, slots32, theta_d, theta_u,
                                    store.capacity, *arrs)
             self._shapes_seen.add((chunk, self.tau_cap, self.b_cap))
             ups, outs = self._run_chunk(store, global_f, g_cdf, g_max, a,
                                         len(pos_c), lr, i, t)
             weighted_row_fold(up_sum, ups, self._dev(a["pmask"]))
-            pend.append((pos_c, len(pos_c), outs))
+            pend.append((by_rank, chunk, outs))
         self.rounds += 1
-        new_global = self._finalize(global_f, up_sum, n)
+        new_global = self._sum_shards(global_f, up_sum, n)
         return (new_global, *self._readback(n, pend))
+
+
+def _take_rows(a: np.ndarray, pos: np.ndarray) -> np.ndarray:
+    """``a[pos]``: a view when ``pos`` is a run of consecutive rows (every
+    unsharded chunk, and a stratified draw's shard), else a copy."""
+    if len(pos) and (np.diff(pos) == 1).all():
+        return a[pos[0]:pos[-1] + 1]
+    return a[pos]
 
 
 def _pad_rows(a: np.ndarray, rows: int) -> np.ndarray:

@@ -16,7 +16,9 @@ over its sibling modules:
   boundary: serialized uploads, fault injection, robust aggregation and
   diurnal availability;
 * `repro_torch.fl.driver` — `SimConfig`, `History`, `RoundPkg`,
-  `Simulator`: the pipelined round loop and Eq.-7 accounting.
+  `Simulator`: the pipelined round loop and Eq.-7 accounting, unsharded
+  or sharded (``SimConfig.sharded``: one rank of a torch.distributed world
+  per shard of the pool, `repro_torch.launch.mesh`).
 
 Import from HERE (``from repro_torch.fl.simulation import Simulator,
 SimConfig``).

@@ -1,5 +1,5 @@
 """Client-state store: the participation-keyed pool of client-local model
-rows — the port of ``repro.fl.state.ClientStateStore`` (one shard).
+rows — the port of ``repro.fl.state.ClientStateStore``.
 
 The paper's stale-local-model semantics (§4.1) need one [n_params] row per
 client, but only clients that have EVER participated hold anything besides
@@ -48,9 +48,26 @@ f32, so a bf16 pool round-trips losslessly) that
 carries the slot maps, eviction metadata and offloaded rows, and has the
 reference's keys.
 
-Sharded segments (``n_shards > 1``) are not ported: ROADMAP queue 1 item
-13. All calls run on the MAIN thread: the executor gathers and scatters
-the pool in place between `prepare` and the next round.
+Sharding (``n_shards > 1``): the pool is row-partitioned over the 1-D
+"data" layout (`repro_torch.launch.mesh`); slot ids are ``shard *
+cap_per_shard + local``, so each shard's segment has its own free list,
+growth and eviction, and a client's slot lives in its own shard (the
+stratified participant draw, DESIGN.md §7). The host bookkeeping (maps,
+tiers, centroids, offloaded rows, restore-error shadow) is the same on
+every rank. The device rows are not: without a process group (a world of
+1) the store holds every segment in one tensor, as the reference does in
+one process; under a group of ``n_shards`` ranks (``layout``) each rank
+holds only its own ``[cap_per_shard, n_params]`` segment (and residual
+segment) on its device. Either way one code path indexes the owned rows
+from ``row0``: restores write only owned slots, eviction gathers the
+victims' rows from every rank (so every rank folds the same centroids),
+growth regrows each owned segment in place on the device, and
+`state_dict` gathers the whole pool.
+
+All calls run on the MAIN thread: the executor gathers and scatters the
+pool in place between `prepare` and the next round. Under a group every
+rank makes the same calls in the same order (eviction and `state_dict`
+are collectives).
 """
 from __future__ import annotations
 
@@ -59,6 +76,8 @@ import tempfile
 
 import numpy as np
 import torch
+
+from repro_torch.launch import mesh as MESH
 
 STATE_OFFLOADS = ("none", "host", "memmap")
 # fresh pools start at this multiple of the cohort (pow2-rounded)
@@ -150,20 +169,21 @@ class ClientStateStore:
     residuals. The executor's contract, per round on the main thread:
 
         slots = store.prepare(parts, t)    # activate / evict, host side
-        <chunk steps read and write store.pool / store.ef_pool in place>
+        <chunk steps read and write store.pool / store.ef_pool in place,
+         at rows slots - store.row0 of the owned segments>
     """
 
     def __init__(self, n_clients: int, n_params: int,
                  init_row: torch.Tensor, *, capacity: int | None = None,
                  cohort: int = 1, device, ef_width: int = 0,
                  dtype: torch.dtype = torch.float32, n_shards: int = 1,
+                 layout: MESH.DataGroup | None = None,
                  offload: str = "none", offload_dir=None,
                  n_tiers: int = DEFAULT_N_TIERS, volumes=None,
                  measure_restore_error: bool = False):
-        if n_shards != 1:
-            raise NotImplementedError(
-                "sharded client-state segments (n_shards > 1) are not "
-                "ported to repro_torch yet (ROADMAP queue 1 item 13)")
+        if n_clients % max(n_shards, 1):
+            raise ValueError(f"n_clients ({n_clients}) must divide over "
+                             f"{n_shards} shards")
         if offload not in STATE_OFFLOADS:
             raise ValueError(f"unknown state_offload {offload!r}; want one "
                              f"of {STATE_OFFLOADS}")
@@ -172,9 +192,20 @@ class ClientStateStore:
         self.device = torch.device(device)
         self.ef_width = int(ef_width)
         self.dtype = dtype
-        self.n_shards = 1
-        self.rows_per_shard = self.n_clients
-        self.cohort_per_shard = max(int(cohort), 1)
+        self.n_shards = max(int(n_shards), 1)
+        # the shards whose rows this process holds: all of them in a world
+        # of 1, its own one under a group of n_shards ranks
+        self.layout = layout
+        world = 1 if layout is None else layout.world
+        if world == 1:
+            self.seg_lo, self.n_owned = 0, self.n_shards
+        elif world == self.n_shards:
+            self.seg_lo, self.n_owned = layout.rank, 1
+        else:
+            raise ValueError(f"{self.n_shards} shards over a world of "
+                             f"{world} ranks: want one rank per shard")
+        self.rows_per_shard = self.n_clients // self.n_shards
+        self.cohort_per_shard = max(-(-int(cohort) // self.n_shards), 1)
         self.n_tiers = int(n_tiers)
         # the initial model AT the storage dtype (round to nearest even, as
         # the reference pre-quantizes it), so activation writes are exact
@@ -192,12 +223,14 @@ class ClientStateStore:
                 self.rows_per_shard,
                 _pow2(GROW_COHORT_FACTOR * self.cohort_per_shard))
         else:
-            self.cap_per_shard = min(int(capacity), self.rows_per_shard)
+            self.cap_per_shard = min(-(-int(capacity) // self.n_shards),
+                                     self.rows_per_shard)
             if self.cap_per_shard < self.cohort_per_shard:
                 raise ValueError(
-                    f"state_capacity={capacity} cannot hold the cohort "
-                    f"({self.cohort_per_shard}); the current round's "
-                    "participants are never evicted")
+                    f"state_capacity={capacity} cannot hold the per-shard "
+                    f"cohort ({self.cohort_per_shard} × {self.n_shards} "
+                    "shards); the current round's participants are never "
+                    "evicted")
 
         # host maps
         self.slot_of = np.full(self.n_clients, -1, np.int64)
@@ -235,20 +268,37 @@ class ClientStateStore:
 
     @property
     def capacity(self) -> int:
-        return self.cap_per_shard
+        """Slots over every shard; the out-of-range pad slot."""
+        return self.cap_per_shard * self.n_shards
+
+    @property
+    def row0(self) -> int:
+        """The first slot of this process's pool tensor (its row 0)."""
+        return self.seg_lo * self.cap_per_shard
+
+    def _owned(self, slots: np.ndarray) -> np.ndarray:
+        """Mask of the ``slots`` whose rows this process holds."""
+        return ((slots >= self.row0)
+                & (slots < self.row0 + self.n_owned * self.cap_per_shard))
+
+    def _rows(self, slots) -> torch.Tensor:
+        """Device row indices of owned ``slots`` in the pool tensor."""
+        return torch.from_numpy(np.asarray(slots, np.int64)
+                                - self.row0).to(self.device)
 
     def _init_pool(self):
         cap, w = self.capacity, self.n_params
+        rows = self.n_owned * self.cap_per_shard
         if self.dense:
-            self.pool = self.init_row.to(self.dtype).expand(cap, w).clone()
+            self.pool = self.init_row.to(self.dtype).expand(rows, w).clone()
             self.slot_of = np.arange(self.n_clients, dtype=np.int64)
             self.client_of = np.arange(cap, dtype=np.int64)
         else:
-            self.pool = torch.zeros((cap, w), dtype=self.dtype,
+            self.pool = torch.zeros((rows, w), dtype=self.dtype,
                                     device=self.device)
             self.client_of = np.full(cap, -1, np.int64)
-        self.ef_pool = torch.zeros((cap, self.ef_width), dtype=torch.float32,
-                                   device=self.device)
+        self.ef_pool = torch.zeros((rows, self.ef_width),
+                                   dtype=torch.float32, device=self.device)
 
     # -- activation / eviction ----------------------------------------------
 
@@ -263,8 +313,13 @@ class ClientStateStore:
         self.last_used[parts] = t
         return self.slot_of[parts].astype(np.int32)
 
-    def _free_slots(self) -> np.ndarray:
-        return np.flatnonzero(self.client_of < 0)
+    def _shard_of_client(self, clients):
+        return clients // self.rows_per_shard
+
+    def _free_slots(self, shard: int) -> np.ndarray:
+        seg0 = shard * self.cap_per_shard
+        seg = self.client_of[seg0:seg0 + self.cap_per_shard]
+        return np.flatnonzero(seg < 0) + seg0
 
     def _staleness_tier(self, clients, t: int) -> np.ndarray:
         delta = np.maximum(t - self.last_used[clients], 1)
@@ -272,52 +327,69 @@ class ClientStateStore:
                           self.n_tiers - 1).astype(np.int8)
 
     def _activate(self, missing: np.ndarray, protected: np.ndarray, t: int):
-        need = len(missing)
-        free = self._free_slots()
-        if self.growable and need > len(free):
-            used = self.cap_per_shard - len(free)
-            self._grow(_pow2(used + need))
-            free = self._free_slots()
-        if need > len(free):
-            self._evict(need - len(free), protected, t)
-            free = self._free_slots()
-        # missing is sorted, free slots ascending: a deterministic
-        # assignment, the reference's
-        self._restore(missing, free[:need])
+        shard = self._shard_of_client(missing)
+        need = np.bincount(shard, minlength=self.n_shards)
+        free = [self._free_slots(s) for s in range(self.n_shards)]
+        short = need - np.array([len(f) for f in free])
+        if self.growable and (short > 0).any():
+            used = self.cap_per_shard - np.array([len(f) for f in free])
+            self._grow(_pow2(int((used + need).max())))
+            free = [self._free_slots(s) for s in range(self.n_shards)]
+            short = need - np.array([len(f) for f in free])
+        if (short > 0).any():
+            self._evict(short, protected, t)
+            free = [self._free_slots(s) for s in range(self.n_shards)]
+        # missing is sorted ⇒ shard-major ⇒ aligned with the per-shard
+        # ascending free slots: a deterministic assignment, the reference's
+        slots = np.concatenate([
+            free[s][:need[s]] for s in range(self.n_shards)])
+        self._restore(missing, slots)
 
-    def _grow(self, new_cap: int):
-        new_cap = min(new_cap, self.rows_per_shard)
-        if new_cap <= self.cap_per_shard:
+    def _grow(self, new_cap_per: int):
+        """Grow every shard's segment to ``new_cap_per`` rows. Slots move
+        (slot = shard · cap_per_shard + local): each owned segment is
+        regrown in place on the device and the slot maps are remapped."""
+        new_cap_per = min(new_cap_per, self.rows_per_shard)
+        if new_cap_per <= self.cap_per_shard:
             return
-        extra = new_cap - self.cap_per_shard
-        self.pool = torch.cat([self.pool, torch.zeros(
-            (extra, self.n_params), dtype=self.pool.dtype,
-            device=self.device)])
-        self.ef_pool = torch.cat([self.ef_pool, torch.zeros(
-            (extra, self.ef_width), dtype=torch.float32,
-            device=self.device)])
-        grown = np.full(new_cap, -1, np.int64)
-        grown[:self.cap_per_shard] = self.client_of
-        self.client_of = grown
-        self.cap_per_shard = new_cap
+        old_per, k = self.cap_per_shard, self.n_owned
+
+        def regrow(dev):
+            out = dev.new_zeros((k, new_cap_per, dev.shape[1]))
+            out[:, :old_per] = dev.view(k, old_per, dev.shape[1])
+            return out.view(k * new_cap_per, dev.shape[1])
+
+        self.pool = regrow(self.pool)
+        self.ef_pool = regrow(self.ef_pool)
+        res = self.slot_of >= 0
+        sh, loc = np.divmod(self.slot_of[res], old_per)
+        self.slot_of[res] = sh * new_cap_per + loc
+        self.client_of = np.full(self.n_shards * new_cap_per, -1, np.int64)
+        self.client_of[self.slot_of[res]] = np.flatnonzero(res)
+        self.cap_per_shard = new_cap_per
         self.n_grows += 1
 
-    def _evict(self, short: int, protected: np.ndarray, t: int):
-        """Free ``short`` slots by folding the coldest resident
-        non-participants onto their staleness-tier centroid."""
+    def _evict(self, short: np.ndarray, protected: np.ndarray, t: int):
+        """Free ``short[s]`` slots in each shard s by folding the coldest
+        resident non-participants onto their staleness-tier centroid."""
         prot = np.zeros(self.n_clients, bool)
         prot[protected] = True
-        seg = self.client_of
-        cands = seg[(seg >= 0) & ~prot[np.maximum(seg, 0)]]
-        if len(cands) < short:
-            raise RuntimeError(
-                f"need {short} slots but only {len(cands)} evictable rows "
-                "(capacity too small for the cohort)")
-        # coldest first: staleness tiers are monotone in last_used, so an
-        # ascending last_used sort IS tier-major + LRU-within-tier; client
-        # id breaks exact ties deterministically
-        order = np.lexsort((cands, self.last_used[cands]))
-        victims = cands[order[:short]]
+        victims = []
+        for s in np.flatnonzero(short > 0):
+            seg0 = s * self.cap_per_shard
+            seg = self.client_of[seg0:seg0 + self.cap_per_shard]
+            cands = seg[(seg >= 0) & ~prot[np.maximum(seg, 0)]]
+            if len(cands) < short[s]:
+                raise RuntimeError(
+                    f"shard {s}: need {short[s]} slots but only "
+                    f"{len(cands)} evictable rows (capacity too small for "
+                    "the cohort)")
+            # coldest first: staleness tiers are monotone in last_used, so
+            # an ascending last_used sort IS tier-major + LRU-within-tier;
+            # client id breaks exact ties deterministically
+            order = np.lexsort((cands, self.last_used[cands]))
+            victims.append(cands[order[:short[s]]])
+        victims = np.concatenate(victims)
         slots_v = self.slot_of[victims]
         rows = self._read_rows(self.pool, slots_v)
         efs = (self._read_rows(self.ef_pool, slots_v) if self.ef_width
@@ -346,15 +418,35 @@ class ClientStateStore:
         self.n_evictions += len(victims)
 
     def _read_rows(self, pool: torch.Tensor, slots: np.ndarray) -> np.ndarray:
-        """f32 host copy of ``pool[slots]``: a device gather of those rows
-        only, never a copy of the whole pool."""
-        idx = torch.from_numpy(np.asarray(slots, np.int64)).to(self.device)
-        return pool.index_select(0, idx).to(torch.float32).cpu().numpy()
+        """f32 host copy of the rows at ``slots`` (a device gather of those
+        rows only, never a copy of the whole pool). Under a group each rank
+        gathers the rows it holds and the ranks exchange them (the
+        reference's `fetch_global`), so every rank gets every row."""
+        slots = np.asarray(slots, np.int64)
+        if self.layout is None or self.layout.world == 1:
+            return pool.index_select(0, self._rows(slots)).to(
+                torch.float32).cpu().numpy()
+        own = self._owned(slots)
+        mine = torch.zeros((len(slots), pool.shape[1]), dtype=torch.float32,
+                           device=self.device)
+        sel = torch.from_numpy(np.flatnonzero(own)).to(self.device)
+        mine.index_copy_(0, sel, pool.index_select(
+            0, self._rows(slots[own])).to(torch.float32))
+        per_rank = MESH.fetch_global(mine, self.layout)
+        holder = slots // (self.n_owned * self.cap_per_shard)
+        out = np.empty((len(slots), pool.shape[1]), np.float32)
+        for r, got in enumerate(per_rank):
+            at = np.flatnonzero(holder == r)
+            if len(at):
+                out[at] = got[torch.from_numpy(at).to(got.device)].cpu(
+                ).numpy()
+        return out
 
     def _restore(self, clients: np.ndarray, slots: np.ndarray):
         """Materialize rows for newly resident clients: exact offloaded
         copy > staleness-tier centroid > initial-model row. Residual rows
-        restart at zero unless the offloaded copy carries them."""
+        restart at zero unless the offloaded copy carries them. The host
+        bookkeeping runs for every client; only owned slots are written."""
         host_i, host_rows, host_efs, fresh_i = [], [], [], []
         for i, c in enumerate(clients):
             got = self.offloader.pop(int(c)) if self.offloader else None
@@ -378,42 +470,55 @@ class ClientStateStore:
                 fresh_i.append(i)
                 self.n_restore_fresh += 1
         slots = np.asarray(slots, np.int64)
-
-        def dev(sel):
-            return torch.from_numpy(slots[sel]).to(self.device)
-
+        own = self._owned(slots)
+        fresh_i = [i for i in fresh_i if own[i]]
         if fresh_i:
-            self.pool.index_copy_(0, dev(fresh_i), self.init_row.to(
-                self.dtype).expand(len(fresh_i), self.n_params))
+            self.pool.index_copy_(0, self._rows(slots[fresh_i]),
+                                  self.init_row.to(self.dtype).expand(
+                                      len(fresh_i), self.n_params))
+        kept = [j for j, i in enumerate(host_i) if own[i]]
+        host_i = [host_i[j] for j in kept]
+        host_rows = [host_rows[j] for j in kept]
+        host_efs = [host_efs[j] for j in kept]
         if host_i:
             rows = torch.from_numpy(np.stack(host_rows)).to(self.device)
-            self.pool.index_copy_(0, dev(host_i), rows.to(self.dtype))
-        if self.ef_width:
+            self.pool.index_copy_(0, self._rows(slots[host_i]),
+                                  rows.to(self.dtype))
+        if self.ef_width and own.any():
             # a recycled slot holds its previous owner's residual
-            self.ef_pool.index_fill_(0, dev(slice(None)), 0.0)
+            self.ef_pool.index_fill_(0, self._rows(slots[own]), 0.0)
             off = [(i, e) for i, e in zip(host_i, host_efs) if e is not None]
             if off:
-                self.ef_pool.index_copy_(0, dev([i for i, _ in off]),
-                                         torch.from_numpy(np.stack(
-                                             [e for _, e in off])).to(
-                                                 self.device))
+                self.ef_pool.index_copy_(
+                    0, self._rows(slots[[i for i, _ in off]]),
+                    torch.from_numpy(np.stack([e for _, e in off])).to(
+                        self.device))
         self.slot_of[clients] = slots
         self.client_of[slots] = clients
 
     # -- checkpoint / introspection -----------------------------------------
 
+    def _gather_pool(self, pool: torch.Tensor) -> np.ndarray:
+        """The whole [capacity, width] pool as f32 numpy, every segment in
+        slot order (gathered from every rank under a group)."""
+        if pool.shape[1] == 0:
+            return np.zeros((self.capacity, 0), np.float32)
+        segs = MESH.fetch_global(pool.to(torch.float32), self.layout)
+        return torch.cat([s.cpu() for s in segs]).numpy()
+
     def state_dict(self) -> dict:
         """Flat dict of numpy arrays for `CheckpointManager`, with the
         reference's keys. The pool is cast to f32 (bf16 → f32 is lossless;
-        npz has no bf16 dtype)."""
+        npz has no bf16 dtype) and gathered whole: under a group every rank
+        must call it."""
         off_cids, off_rows = (self.offloader.export() if self.offloader
                               else (np.empty(0, np.int64),
                                     np.empty((0, self.n_params
                                               + self.ef_width),
                                              np.float32)))
         return {
-            "pool": self.pool.to(torch.float32).cpu().numpy(),
-            "ef_pool": self.ef_pool.cpu().numpy(),
+            "pool": self._gather_pool(self.pool),
+            "ef_pool": self._gather_pool(self.ef_pool),
             "slot_of": self.slot_of.copy(),
             "client_of": self.client_of.copy(),
             "last_used": self.last_used.copy(),
@@ -431,15 +536,19 @@ class ClientStateStore:
         }
 
     def load_state_dict(self, d: dict):
-        cap = int(np.asarray(d["cap_per_shard"])[0])
+        """Install a `state_dict`: the host maps whole, and of the pool
+        only the rows of the owned segments, placed on this device."""
+        cap_per = int(np.asarray(d["cap_per_shard"])[0])
         pool = np.asarray(d["pool"], np.float32)
-        if pool.shape != (cap, self.n_params):
+        if pool.shape != (cap_per * self.n_shards, self.n_params):
             raise ValueError(f"pool shape {pool.shape} does not match "
-                             f"capacity {cap}")
-        self.cap_per_shard = cap
-        self.pool = torch.from_numpy(pool).to(self.device).to(self.dtype)
-        self.ef_pool = torch.from_numpy(
-            np.asarray(d["ef_pool"], np.float32)).to(self.device)
+                             f"capacity {cap_per} × {self.n_shards} shards")
+        self.cap_per_shard = cap_per
+        mine = slice(self.row0, self.row0 + self.n_owned * cap_per)
+        self.pool = torch.from_numpy(np.ascontiguousarray(pool[mine])).to(
+            self.device).to(self.dtype)
+        self.ef_pool = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(d["ef_pool"], np.float32)[mine])).to(self.device)
         self.slot_of = np.asarray(d["slot_of"], np.int64).copy()
         self.client_of = np.asarray(d["client_of"], np.int64).copy()
         self.last_used = np.asarray(d["last_used"], np.int64).copy()

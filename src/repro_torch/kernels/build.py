@@ -6,7 +6,11 @@ it compiles in seconds without PyTorch's headers. Libraries are built at
 first use into ``<checkout>/build/kernels/`` (listed in ``.gitignore``),
 named by a digest of the source and the flags, so an edited source is never
 served from a stale library. `build` starts one ``nvcc`` per missing source,
-all at once, and waits for all of them. Nothing is built on import.
+all at once, and waits for all of them. Processes that start together (the
+ranks of a sharded run) build once: `build` holds an exclusive lock on
+``build/kernels/build.lock`` (``flock``, released when its holder exits,
+however it exits), so the others wait for the libraries and build none.
+Nothing is built on import.
 
 The compiler is ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on ``PATH``, else
 ``/usr/local/cuda/bin/nvcc``. The target is ``sm_90a`` (Hopper).
@@ -16,7 +20,9 @@ in one launch (ticket counters, accumulators) leave zeroed between calls;
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -68,12 +74,32 @@ def build(names=None) -> float:
     the compiler's output if any build fails. The ptxas report (registers,
     shared memory, spills) is kept beside each library as ``<name>.log``."""
     names = list(SOURCES) if names is None else list(names)
-    todo = [n for n in names if not library_path(n).exists()]
     t0 = time.perf_counter()
-    if not todo:
+    if all(library_path(n).exists() for n in names):
         return 0.0
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
+    with _build_lock(out_dir):
+        # another process may have built them while this one waited
+        todo = [n for n in names if not library_path(n).exists()]
+        if todo:
+            _compile(todo, out_dir)
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _build_lock(out_dir: Path):
+    """An exclusive ``flock`` on ``out_dir/build.lock`` across processes."""
+    with open(out_dir / "build.lock", "a+") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _compile(todo: list, out_dir: Path) -> None:
+    """One ``nvcc`` per source in ``todo``, all at once."""
     exe = nvcc()
     procs = []
     for name in todo:
@@ -94,7 +120,6 @@ def build(names=None) -> float:
         os.replace(tmp, final)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return time.perf_counter() - t0
 
 
 def build_log(name: str) -> str:

@@ -1,2 +1,3 @@
-"""Track-B launchers: the training CLI (`train`) and elastic state surgery
-(`elastic`)."""
+"""Launchers: the Track-B training CLI (`train`), elastic state surgery
+(`elastic`), and the sharded Track-A engine's process layout over
+torch.distributed (`mesh`)."""

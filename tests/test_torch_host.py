@@ -93,7 +93,8 @@ def test_capability_snapshots_byte_equal(seed):
                                     "repro_torch.checkpoint.manager",
                                     "repro_torch.fl.distributed",
                                     "repro_torch.launch.train",
-                                    "repro_torch.launch.elastic"])
+                                    "repro_torch.launch.elastic",
+                                    "repro_torch.launch.mesh"])
 def test_port_imports_neither_jax_nor_reference(module):
     code = (f"import sys; import {module}; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
@@ -123,12 +124,15 @@ _FAST = dict(dataset="har", n_clients=12, participation=0.25, rounds=1,
 @pytest.mark.parametrize("override,exc,match", [
     (dict(state_capacity=8, state_offload="bogus"), ValueError,
      "state_offload"),
-    (dict(sharded=True), NotImplementedError, "item 13"),
-    (dict(multi_host=True), NotImplementedError, "item 13"),
+    (dict(multi_host=True), ValueError, "requires sharded=True"),
+    (dict(sharded=True, wire="loopback"), ValueError, "single-mesh"),
+    (dict(sharded=True, availability=AvailabilityConfig(kind="diurnal")),
+     ValueError, "single-mesh"),
 ])
 def test_out_of_slice_configs_raise(override, exc, match):
-    """Sharding (item 13) is not ported and names its item; an unknown
-    offload of the (ported) capped pool is refused."""
+    """The configurations the simulator refuses, as the reference does:
+    multi_host without sharded, the wire engine or diurnal availability
+    with sharded, an unknown offload of the capped pool."""
     cfg = dataclasses.replace(T_SIM.SimConfig(**_FAST), **override)
     with pytest.raises(exc, match=match):
         T_SIM.Simulator(cfg)
@@ -140,14 +144,24 @@ def test_out_of_slice_configs_raise(override, exc, match):
     dict(caesar=T_CA.CaesarConfig(tau=2, b_max=8, use_error_feedback=True)),
     dict(wire="loopback"),
     dict(availability=AvailabilityConfig(kind="diurnal")),
-], ids=["masked", "bf16", "ef", "loopback", "diurnal"])
+    dict(sharded=True),
+    dict(sharded=True, multi_host=True, ragged=False),
+], ids=["masked", "bf16", "ef", "loopback", "diurnal", "sharded",
+        "multi_host"])
 def test_ported_modes_run_one_round(override):
-    """The modes of ROADMAP items 9 and 11 (which raised before they were
-    ported) build and run a round on the CPU."""
+    """The modes of ROADMAP items 9, 11 and 13 (which raised before they
+    were ported) build and run a round on the CPU; sharded without a
+    process group is a world of 1, and multi_host says it found no
+    multi-process runtime."""
     cfg = dataclasses.replace(T_SIM.SimConfig(**_FAST),
                               caesar=T_CA.CaesarConfig(tau=2, b_max=8))
     cfg = dataclasses.replace(cfg, **override)
-    sim = T_SIM.Simulator(cfg)
+    if cfg.multi_host:
+        with pytest.warns(UserWarning, match="no multi-process"):
+            sim = T_SIM.Simulator(cfg)
+    else:
+        sim = T_SIM.Simulator(cfg)
+    assert sim.n_dev == 1
     hist = sim.run()
     assert len(hist.accuracy) == 1
     assert bool(torch.isfinite(sim.global_flat).all())

@@ -253,10 +253,48 @@ class TestCheckpointRoundTrip:
                            port.pool.view(torch.int16))
 
 
-def test_sharded_segments_name_item_13():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TS.ClientStateStore(16, N_PARAMS, torch.zeros(N_PARAMS), n_shards=2,
-                            device="cpu")
+def _stratified(rounds: int, seed: int) -> list:
+    """Two participants from each shard's 8 clients per round."""
+    rng = np.random.default_rng(np.random.SeedSequence(seed, spawn_key=(92,)))
+    return [np.concatenate([rng.choice(np.arange(8 * s, 8 * s + 8), 2,
+                                       replace=False) for s in range(2)])
+            for _ in range(rounds)]
+
+
+@pytest.mark.parametrize("capacity,cohort", [(8, 4), (None, 2)],
+                         ids=["capped", "growable"])
+def test_sharded_segments_name_item_13(capacity, cohort):
+    """Sharded segments (item 13, now ported): the two-shard store in one
+    process (both segments in one tensor) against the reference's
+    ``ClientStateStore(16, …, capacity=8, cohort=4, n_shards=2)`` over 5
+    stratified rounds — slot maps, client_of, tiers, centroids, eviction
+    counts and pool rows equal bit for bit; per-shard sizes as the
+    reference's; the grow-on-demand pool (sized for a cohort of 2, fed 4)
+    regrows both segments and remaps their slots."""
+    ref, port = _pair(capacity=capacity, cohort=cohort, n_shards=2,
+                      ef_width=2)
+    assert (port.rows_per_shard, port.cohort_per_shard,
+            port.cap_per_shard) == (ref.rows_per_shard,
+                                    ref.cohort_per_shard, ref.cap_per_shard)
+    for t, parts in enumerate(_stratified(5, 3), 1):
+        _write(ref, port, parts, t)
+        _assert_same(ref, port)
+        assert (port.slot_of[parts] // port.cap_per_shard
+                == parts // port.rows_per_shard).all()
+    assert port.n_evictions > 0 if capacity else port.n_grows > 0
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(n_clients=15, n_shards=2), "divide over 2 shards"),
+    (dict(capacity=2, cohort=4, n_shards=2), "per-shard cohort"),
+])
+def test_sharded_sizes_refuse_as_the_reference(kw, match):
+    n = kw.pop("n_clients", 16)
+    with pytest.raises(ValueError, match=match):
+        RS.ClientStateStore(n, N_PARAMS, np.zeros(N_PARAMS, np.float32), **kw)
+    with pytest.raises(ValueError, match=match):
+        TS.ClientStateStore(n, N_PARAMS, torch.zeros(N_PARAMS), device="cpu",
+                            **kw)
 
 
 def test_unknown_offload_raises():
