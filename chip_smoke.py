@@ -8,7 +8,8 @@ store with eviction and offload, checkpoint/resume of the simulator,
 serving Qwen1.5-4B at full width and Track-B training of it, and serving
 and Track-B training of the LM zoo's other families at their published
 widths (Mamba2, Zamba2, InternVL2, HuBERT, Llama-4-Scout and DeepSeek-V3,
-the last two cut in depth).
+the last two cut in depth), and Track B over a pod mesh of 4 ranks on the
+card.
 
     python3 chip_smoke.py
 
@@ -126,7 +127,8 @@ Phases, each of which fails the script on any error:
    and 10b train — Qwen1.5-4B (n = 707,788,800 the stacked FFN weights
    down to 2,560), the example's qwen-115m, Mamba2, Zamba2, HuBERT,
    InternVL2, Llama-4-Scout at depth 1 (up to 1,034,485,760, its
-   embedding) and DeepSeek-V3's smoke config — exact against the plain
+   embedding), DeepSeek-V3's smoke config and the leaf shards of phase
+   11's full-width points — exact against the plain
    versions (Σ|x| within rtol 1e-5); at Qwen's and the example's widths
    and every width of at least 10^8 elements also one CUDA kernel per
    call and timed as in phase 3;
@@ -188,7 +190,21 @@ Phases, each of which fails the script on any error:
    memory; one more Llama-4 step run twice from the same state,
    bit-identical; one profiled Zamba2 step; then DeepSeek-V3's smoke
    config cuda vs cpu for 3 steps (phase 9's bounds; its full width does
-   not fit one card).
+   not fit one card);
+11. pod mesh: Track B over a ("pod", "data", "model") mesh on 4 gloo
+   ranks sharing the card (`mesh.spawn`), each rank holding its shards
+   of every leaf: (a) the reference's multipod config on (2, 2, 1) and
+   Llama-4-Scout's smoke config on (1, 2, 2), 2 steps: the card's run
+   twice bit-identical, and within loss rtol 2e-6, params rel. L2 1e-5
+   and residuals 5e-4 outside at most 16 flips of the cpu ranks' run and
+   of the meshless composition pod by pod on the card; (b) Qwen1.5-4B at
+   full width and 8 layers on (2, 2, 1) with error feedback and (c)
+   Llama-4-Scout at full width and depth 1 on (1, 2, 2) without error
+   feedback, 3 steps each through ``train.run`` — per rank the histogram twice and compress and
+   recover once per leaf shard and step at one row (shard widths checked
+   in phase 3c), losses finite and the same on every rank, every shard's
+   replicas bit-identical after every step, every expert shard under
+   2^31; ms per step (the slowest rank), tokens/s, peak memory per rank.
 
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. It exits non-zero without a CUDA device
@@ -2168,8 +2184,8 @@ def phase_track_b_kernels(torch, K, timer):
     cfgs = _track_b_configs()
     timed = set(_leaf_sizes(cfgs[TRAIN_ARCH])) | set(
         _leaf_sizes(cfgs["example"]))
-    sizes = sorted({n for c in cfgs.values() for n in _leaf_sizes(c)},
-                   reverse=True)
+    sizes = sorted({n for c in cfgs.values() for n in _leaf_sizes(c)}
+                   | set(_pod_shard_sizes()), reverse=True)
     out = {}
     for n in sizes:
         check(n < 2 ** 31, f"leaf of {n} elements: the compressed set's "
@@ -3114,7 +3130,7 @@ def _deepseek_parity(torch, checked_sizes) -> dict:
     routed experts and a shared one), cuda vs cpu for
     DEEPSEEK_PARITY_STEPS Track-B steps with phase 8's Caesar settings
     (`_cuda_cpu_parity`); its leaf widths were checked in phase 3c. Its
-    full width does not train on one card (ROADMAP item 13)."""
+    full width does not train on one card (ROADMAP item 13c)."""
     import repro_torch.configs as configs
     from repro_torch.core import compression as C
     from repro_torch.core import rng as RNG
@@ -3158,6 +3174,394 @@ def phase_train_families(torch, K, checked_sizes):
 
 
 TRACK_B_TIMER = dict(windows=5, iters=3)   # rows of 10^8 elements: short
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: Track B over a pod mesh (ROADMAP item 13's Track-B half)
+# ---------------------------------------------------------------------------
+
+POD_WORLD = 4                    # gloo ranks sharing cuda:0
+POD_TIMEOUT_S = 900.0
+POD_NAMES = ("pod", "data", "model")
+# (a) the reference's multipod test config and Llama-4-Scout's smoke
+# config, with a capacity of every token routed there both for a data
+# rank's 64 tokens and for the pod's 128 (so the meshless composition,
+# which routes a pod's micro-batch at once, drops none either)
+POD_MULTIPOD = dict(local_iters=1, d_model=64, n_heads=2, n_kv_heads=2,
+                    d_head=32, vocab=128)
+POD_PARITY = {
+    "parity_qwen": ("qwen1.5-4b", POD_MULTIPOD, (2, 2, 1)),
+    "parity_llama4": ("llama4-scout-17b-a16e", dict(capacity_factor=8.0),
+                      (1, 2, 2)),
+}
+POD_PARITY_STEPS, POD_PARITY_BATCH, POD_PARITY_SEQ = 2, 8, 16
+POD_PARITY_DIST = dict(theta_d=0.3, theta_u=0.35, local_lr=1e-2,
+                       use_error_feedback=True)
+# the gates of tests/test_torch_pod_mesh.py: loss rtol 2e-6, params and
+# stale models rel. L2 1e-5; residuals 5e-4 (plus 2 ulps of their weight
+# where held) outside at most POD_FLIP_MAX flipped elements (measured 0–8
+# on the H100), per expert for the routed experts, at most POD_MOVED_MAX
+# slices beyond
+POD_FLIP_MAX, POD_MOVED_MAX, POD_EF_REL, POD_ULPS = 16, 1, 5e-4, 2
+# (b), (c): published widths, bf16, phase 8's settings: (arch, depth,
+# mesh shape, extra launcher flags). Qwen1.5-4B's depth is cut to what two
+# pods' state, four ranks on one card, leaves room for (PERF.md §4 has
+# the reckoning); Llama-4-Scout at phase 10b's depth 1 and without error
+# feedback, whose residual (one more copy of every rank's shards) does
+# not fit beside the rest
+POD_QWEN_LAYERS = 8
+POD_FULL = {
+    "pod_qwen": ("qwen1.5-4b", POD_QWEN_LAYERS, (2, 2, 1),
+                 ["--error-feedback"]),
+    "pod_llama4": ("llama4-scout-17b-a16e", 1, (1, 2, 2), []),
+}
+POD_STEPS = 3
+POD_TRAIN_ARGS = ["--steps", str(POD_STEPS), "--batch", "8", "--seq", "128",
+                  "--tau", "1", "--theta-u", "0.35", "--theta-d-max", "0.6",
+                  "--seed", "0"]
+
+
+def _pod_shard_sizes(full=None) -> list:
+    """numel of every leaf shard of phase 11's full-width points (for
+    phase 3c)."""
+    from repro_torch.fl import distributed as D
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import model as M
+    out = []
+    for arch, layers, shape, _ in (full or POD_FULL).values():
+        cfg = _family_cfg(arch, layers)
+        mesh = MESH.abstract_mesh(shape, POD_NAMES)
+        for x, sp in zip(D.tree_leaves(M.init_abstract(cfg)),
+                         D.tree_leaves(M.param_specs(cfg, mesh))):
+            out.append(x.numel() // mesh.size_over(SH.spec_axes(sp)))
+    return out
+
+
+def _pod_batches(torch, cfg):
+    import numpy as np
+    rng = np.random.default_rng(11)
+    out = []
+    for _ in range(POD_PARITY_STEPS):
+        t = torch.from_numpy(rng.integers(0, cfg.vocab, (
+            POD_PARITY_BATCH, POD_PARITY_SEQ)).astype(np.int32))
+        out.append({"tokens": t, "labels": t.clone()})
+    return out
+
+
+def _state_cpu(D, state) -> dict:
+    return {f: (None if getattr(state, f) is None else D.tree_map(
+        lambda a: a.detach().cpu(), getattr(state, f)))
+        for f in ("params", "prev_params", "ef")}
+
+
+def _fingerprint(torch, x):
+    """The exact integer sum of a tensor's raw bits (replicas of one shard
+    must give the same)."""
+    raw = {2: torch.int16, 4: torch.int32}[x.element_size()]
+    return x.contiguous().view(raw).to(torch.int64).sum()
+
+
+def _pod_parity_rank(torch, D, M, configs, mesh_of) -> dict:
+    """(a) on this rank: each parity point on the card twice and on the
+    cpu once, from one seeded initial model; the gathered states."""
+    out = {}
+    for name, (arch, over, shape) in POD_PARITY.items():
+        cfg = dataclasses.replace(configs.get(arch).smoke(), **over)
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        batches = _pod_batches(torch, cfg)
+        dcfg = D.DistConfig(**POD_PARITY_DIST)
+        res = {}
+        for dev, runs in (("cuda", 2), ("cpu", 1)):
+            mesh = mesh_of(shape, dev)
+            for i in range(runs):
+                p = D.tree_map(lambda a: a.to(mesh.device, copy=True), params)
+                st = D.init_state(p, dcfg, mesh, cfg)
+                del p
+                step = D.make_train_step(cfg, dcfg, mesh, dev)
+                losses = []
+                for b in batches:
+                    st, m = step(st, {k: v.to(mesh.device)
+                                      for k, v in b.items()})
+                    losses.append(float(m["loss"]))
+                res[f"{dev}{i}"] = {"losses": losses, "state": _state_cpu(
+                    D, D.gather_state(st, cfg, dcfg, mesh))}
+        out[name] = res
+    return out
+
+
+def _pod_full_rank(torch, K, D, M, train, arch, layers, flags,
+                   mesh) -> dict:
+    """(b) / (c) on this rank: POD_STEPS steps of ``train.run`` on the mesh,
+    the launch counters zeroed just before and read just after; each leaf
+    shard's fingerprint after every step, walls, peak memory."""
+    cfg = _family_cfg(arch, layers)
+    args = train.parser().parse_args(POD_TRAIN_ARGS + ["--arch", arch]
+                                     + flags)
+    prints = []
+
+    def on_step(t, state, loss):
+        prints.append(torch.stack([_fingerprint(torch, x) for x in
+                                   D.tree_leaves(state.params)]).cpu())
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    res = train.run(args, log=lambda line: None, cfg=cfg, mesh=mesh,
+                    on_step=on_step)
+    torch.cuda.synchronize()
+    counts, by_rows = K.launch_counts(), K.launch_counts_by_rows()
+    state = res["state"]
+    paths = D._leaf_paths(state.params)
+    leaves = D.tree_leaves(state.params)
+    expert = [x.numel() for q, x in zip(paths, leaves)
+              if q[0] == "moe_layers" and q[-2] == "ffn"
+              and q[-1] in ("w_gate", "w_up", "w_down")]
+    out = {"coords": mesh.coords, "losses": res["losses"],
+           "leaf_numel": [x.numel() for x in leaves],
+           "walls_s": res["walls"], "launches": counts,
+           "launches_by_rows": by_rows, "n_leaves": len(leaves),
+           "local_params": sum(x.numel() for x in leaves),
+           "expert_shard_numel": expert, "fingerprints": prints,
+           "finite": all(bool(torch.isfinite(x).all()) for x in leaves),
+           "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "reserved_gb": torch.cuda.max_memory_reserved() / 2**30,
+           "params": sum(x.numel() for x in D.tree_leaves(
+               M.init_abstract(cfg))), "n_layers": cfg.n_layers}
+    del res, state, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pod_rank(rank, world, store, out_dir, full):
+    """One rank of phase 11's world of POD_WORLD gloo ranks on cuda:0:
+    (a) the parity points, then the full-width points ``full`` (POD_FULL).
+    Results go to out_dir/rank<r>.pt; the ranks meet at a barrier before
+    they take the group down."""
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.configs as configs
+    import repro_torch.kernels as K
+    from repro_torch.fl import distributed as D
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    MESH.init_distributed(f"file://{store}", world, rank, backend="gloo",
+                          timeout_s=POD_TIMEOUT_S / 2)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    meshes = {}
+
+    def mesh_of(shape, dev):
+        if (shape, dev) not in meshes:
+            meshes[(shape, dev)] = MESH.make_mesh(shape, POD_NAMES, dev)
+        return meshes[(shape, dev)]
+
+    out = {"a": _pod_parity_rank(torch, D, M, configs, mesh_of)}
+    for name, (arch, layers, shape, flags) in full.items():
+        out[name] = _pod_full_rank(torch, K, D, M, train, arch, layers,
+                                   flags, mesh_of(shape, "cuda"))
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _pod_gate(torch, D, what, want, got) -> dict:
+    """``got`` (a gathered state) against ``want`` at the POD_* gates."""
+    flips = n_ef = 0
+    moved, worst = [], 0.0
+    for field in ("params", "prev_params", "ef"):
+        a_tree, b_tree = want[field], got[field]
+        check((a_tree is None) == (b_tree is None), f"{what}: {field}")
+        if a_tree is None:
+            continue
+        for q in D._leaf_paths(b_tree):
+            a = D._get(a_tree, q).to(torch.float32)
+            b = D._get(b_tree, q).to(torch.float32)
+            check(a.shape == b.shape, f"{what}: {field} {q} shape")
+            if field != "ef":
+                rel = float(torch.linalg.vector_norm(a - b)
+                            / torch.clamp(torch.linalg.vector_norm(a),
+                                          min=1e-30))
+                worst = max(worst, rel)
+                check(rel <= EXAMPLE_REL_L2, f"{what}: {field} {q} is "
+                      f"{rel} apart")
+                continue
+            flip = ((a == 0) != (b == 0)) | ((a != 0) & (b != 0) & (
+                torch.sign(a) != torch.sign(b)))
+            flips += int(flip.sum())
+            n_ef += a.numel()
+            a, b = torch.where(flip, 0.0, a), torch.where(flip, 0.0, b)
+            w = D._get(got["prev_params"], q).to(torch.float32).abs()
+            ulp = torch.nextafter(w, torch.full_like(w, float("inf"))) - w
+            floor = torch.where((a != 0) | (b != 0), POD_ULPS * ulp, 0.0)
+            expert = (q[0] == "moe_layers" and q[-2] == "ffn"
+                      and q[-1] != "router")
+            for sl in (
+                    [tuple(i) for i in torch.cartesian_prod(*(
+                        torch.arange(n) for n in a.shape[:3])).tolist()]
+                    if expert else [()]):
+                d = torch.linalg.vector_norm(a[sl] - b[sl])
+                lim = (POD_EF_REL * torch.linalg.vector_norm(a[sl])
+                       + torch.linalg.vector_norm(floor[sl]))
+                if float(d) > float(lim):
+                    moved.append(f"{q}{sl}")
+    check(flips <= POD_FLIP_MAX, f"{what}: {flips} residual flips")
+    check(len(moved) <= POD_MOVED_MAX, f"{what}: residuals beyond the "
+          f"bound in {moved}")
+    return {"max_leaf_rel_l2": worst, "residual_flips": flips,
+            "residual_elements": n_ef, "moved_slices": moved}
+
+
+def _pod_parity(torch, name, res) -> dict:
+    """(a)'s checks on rank 0's gathered states (every rank gathers the
+    same): the card's two runs bit-identical; the card against the cpu
+    ranks and against the meshless composition on the card."""
+    import repro_torch.configs as configs
+    from repro_torch.fl import distributed as D
+    from repro_torch.models import model as M
+    arch, over, shape = POD_PARITY[name]
+    c0, c1, cpu = res["cuda0"], res["cuda1"], res["cpu0"]
+    check(c0["losses"] == c1["losses"], f"{name}: rerun losses differ")
+    for f in ("params", "prev_params", "ef"):
+        check(all(torch.equal(x, y) for x, y in zip(
+            D.tree_leaves(c0["state"][f]), D.tree_leaves(c1["state"][f]))),
+            f"{name}: rerun {f} differ")
+    out = {"losses_cuda": c0["losses"], "losses_cpu": cpu["losses"],
+           "rerun_bit_identical": True}
+    for lg, lc in zip(c0["losses"], cpu["losses"]):
+        check(abs(lg - lc) <= EXAMPLE_LOSS_RTOL * abs(lc), f"{name}: loss "
+              f"{lg} on the card vs {lc} on the cpu ranks")
+    out["vs_cpu"] = _pod_gate(torch, D, f"{name} cuda vs cpu", cpu["state"],
+                              c0["state"])
+    # the meshless composition, pod by pod on the card
+    cfg = dataclasses.replace(configs.get(arch).smoke(), **over)
+    dcfg = D.DistConfig(**POD_PARITY_DIST)
+    n_pods = shape[0]
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    st = D.init_state(D.tree_map(lambda a: a.to("cuda"), params), dcfg)
+
+    def pods(t):
+        return None if t is None else D.tree_map(
+            lambda a: a.expand((n_pods,) + tuple(a.shape[1:])).clone(), t)
+
+    st = dataclasses.replace(st, prev_params=pods(st.prev_params),
+                             ef=pods(st.ef))
+    step = D.make_pods_step(cfg, dcfg, n_pods, device="cuda")
+    losses = []
+    for b in _pod_batches(torch, cfg):
+        st, m = step(st, {k: v.to("cuda") for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    for lg, lm in zip(c0["losses"], losses):
+        check(abs(lg - lm) <= EXAMPLE_LOSS_RTOL * abs(lm), f"{name}: loss "
+              f"{lg} on the mesh vs {lm} composed pod by pod")
+    out["losses_composed"] = losses
+    out["vs_composed"] = _pod_gate(torch, D, f"{name} mesh vs composed",
+                                   _state_cpu(D, st), c0["state"])
+    return out
+
+
+def _pod_full_checks(torch, name, ranks, checked_sizes, full) -> dict:
+    """(b) / (c)'s checks over every rank's results."""
+    from repro_torch.fl import distributed as D
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import model as M
+    arch, layers, shape, flags = full[name]
+    cfg = _family_cfg(arch, layers)
+    mesh = MESH.abstract_mesh(shape, POD_NAMES)
+    specs = D.tree_leaves(M.param_specs(cfg, mesh))
+    r0 = ranks[0][name]
+    leaves = r0["n_leaves"]
+    want = {"magnitude_histogram": 2 * leaves * POD_STEPS,
+            "hybrid_compress": leaves * POD_STEPS,
+            "recover": leaves * POD_STEPS, "decode_attention": 0}
+    for r, res in enumerate(ranks):
+        got = res[name]
+        check(got["n_leaves"] == leaves and got["launches"] == want,
+              f"{name} rank {r}: launches {got['launches']}, want {want}")
+        for k, per in got["launches_by_rows"].items():
+            check(set(per) <= {1}, f"{name} rank {r}: {k} at rows {per}")
+        check(got["losses"] == r0["losses"] and all(
+            math.isfinite(x) for x in got["losses"]),
+            f"{name} rank {r}: losses {got['losses']} vs {r0['losses']}")
+        check(got["finite"], f"{name} rank {r}: a non-finite parameter")
+        check(all(n < 2 ** 31 for n in got["expert_shard_numel"]),
+              f"{name} rank {r}: an expert shard of 2^31 or more")
+    # replicas of one shard (ranks that differ only on axes the leaf's
+    # spec does not split) hold the same bits after every step
+    for j, sp in enumerate(specs):
+        axes = [POD_NAMES.index(a) for a in SH.spec_axes(sp)]
+        seen = {}
+        for res in ranks:
+            got = res[name]
+            key = tuple(got["coords"][i] for i in axes)
+            fp = [int(p[j]) for p in got["fingerprints"]]
+            check(seen.setdefault(key, fp) == fp, f"{name}: leaf {j}'s "
+                  f"replicas {key} differ")
+    sizes = {n for res in ranks for n in res[name]["leaf_numel"]}
+    check(sizes <= set(checked_sizes), f"{name}: a leaf shard's width was "
+          "not checked in phase 3c")
+    walls = [res[name]["walls_s"] for res in ranks]
+    last = max(w[-1] for w in walls)
+    tokens = 8 * 128
+    return {"arch": arch, "n_layers": cfg.n_layers, "mesh": dict(zip(
+        POD_NAMES, shape)), "flags": flags, "params": r0["params"],
+        "local_params_per_rank": [res[name]["local_params"]
+                                  for res in ranks],
+        "leaves": leaves, "losses": r0["losses"],
+        "step_walls_s_per_rank": walls, "ms_per_step": last * 1e3,
+        "tokens_per_s": tokens / last,
+        "peak_gb_per_rank": [res[name]["peak_gb"] for res in ranks],
+        "reserved_gb_per_rank": [res[name]["reserved_gb"] for res in ranks],
+        "expert_shard_numel": r0["expert_shard_numel"],
+        "launches_per_rank": [res[name]["launches"] for res in ranks]}
+
+
+def phase_pod_mesh(torch, checked_sizes, full=None) -> dict:
+    """Phase 11: Track B over a pod mesh on POD_WORLD gloo ranks sharing
+    cuda:0 (`mesh.spawn` of `_pod_rank`; results through
+    build/pod_mesh/rank<r>.pt, deleted after). (a) The reference's
+    multipod config on (pod 2, data 2, model 1) and Llama-4-Scout's smoke
+    config on (1, 2, 2) (experts over "model"), 2 steps: the card's run
+    twice bit-identical, against the cpu ranks' and against the meshless
+    composition pod by pod on the card at the POD_* gates. (b) Qwen1.5-4B
+    at full width and POD_QWEN_LAYERS layers on (2, 2, 1) and (c)
+    Llama-4-Scout at full width and depth 1 on (1, 2, 2) (no error
+    feedback), POD_STEPS steps each through ``train.run``: per rank the histogram twice and compress
+    and recover once per leaf shard and step, at one row; losses finite
+    and the same on every rank; every leaf shard's replicas bit-identical
+    after every step; every expert shard under 2^31; ms per step (the
+    slowest rank), tokens/s, peak memory per rank."""
+    from repro_torch.launch import mesh as MESH
+    full = full or POD_FULL
+    work = os.path.join(ROOT, "build", "pod_mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    torch.cuda.empty_cache()
+    # four processes share the card: segments that grow in place keep
+    # each rank's cached blocks from fragmenting the others' room
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        MESH.spawn(_pod_rank, POD_WORLD,
+                   (POD_WORLD, os.path.join(work, "pg"), work, full),
+                   timeout_s=POD_TIMEOUT_S)
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"))
+                 for r in range(POD_WORLD)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {}
+    for name in POD_PARITY:
+        out[name] = _pod_parity(torch, name, ranks[0]["a"][name])
+        print(f"{name}: " + json.dumps(out[name]))
+    for name in full:
+        out[name] = _pod_full_checks(torch, name, ranks, checked_sizes,
+                                     full)
+        print(f"{name}: " + json.dumps(out[name]))
+    return out
 
 
 def main() -> int:
@@ -3269,6 +3673,7 @@ def main() -> int:
     serve_fam = timed("serve_families", phase_serve_families, torch, K)
     train_fam = timed("train_families", phase_train_families, torch, K,
                       tb_sizes)
+    pod = timed("pod_mesh", phase_pod_mesh, torch, tb_sizes)
     _scratch_zeroed(torch, build, "the round, schemes, store, serve and "
                     "train paths")
 
@@ -3321,6 +3726,9 @@ def main() -> int:
                 if (key, 1) in tbres[n]}})
         if name in by_rows:
             kernels[-1]["launches_by_rows"] = by_rows[name]
+        kernels[-1]["launches_pod_mesh_per_rank"] = {
+            p: [c[name] for c in pod[p]["launches_per_rank"]]
+            for p in POD_FULL}
         w4 = sharded["world4_dense"]
         kernels[-1]["launches_sharded_per_rank"] = {
             "launches": w4["launches_per_rank"][name],
@@ -3365,7 +3773,7 @@ def main() -> int:
                    "capped_store": capped, "resume": resume,
                    "train_path": train_out, "train_example": example,
                    "serve_families": serve_fam,
-                   "train_families": train_fam,
+                   "train_families": train_fam, "pod_mesh": pod,
                    "phase_s": phase_s, "kernels": kernels},
                   f, indent=1)
     print(f"card: {smi}")

@@ -252,30 +252,56 @@ def topk_payload_bits(n_keep: torch.Tensor) -> torch.Tensor:
     return n_keep.to(torch.float32) * (FULL_BITS + INDEX_BITS)
 
 
+# counted in slices of this many elements: a bool sum promotes its input
+# to int64 first, 8 bytes per element of a leaf of up to 2^31
+_COUNT_SLICE = 1 << 26
+
+
+def _topk_at(g2: torch.Tensor, thr: torch.Tensor):
+    """(sparse [rows, n] in g2's dtype, kept count [rows] int64) at
+    ``thr``. ``|g| < thr`` is taken as ``-thr < g < thr`` (the same set
+    for thr ≥ 0, NaN never dropped), compared in f32 element by element:
+    no f32 copy or |g| of the whole row is made."""
+    t = thr.reshape(-1, 1)
+    dropped = (g2 < t) & (g2 > -t)
+    sparse = torch.where(dropped, 0.0, g2)
+    n = g2.shape[-1]
+    n_drop = sum(dropped[:, i:i + _COUNT_SLICE].sum(dim=-1)
+                 for i in range(0, n, _COUNT_SLICE))
+    return sparse, n - n_drop
+
+
 def topk_sparsify_at(g: torch.Tensor, thr: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k sparsify each row at its precomputed threshold (strict
     ``|g| < thr`` is dropped). ``g`` [rows, n] (or [n] with a 1-element
     ``thr``); returns (sparse, payload bits [rows])."""
-    g2 = _rows(g).to(torch.float32)
-    dropped = g2.abs() < thr.reshape(-1, 1)
-    sparse = torch.where(dropped, 0.0, g2).to(g.dtype).reshape(g.shape)
-    n_keep = g2.shape[-1] - dropped.sum(dim=-1)
-    return sparse, topk_payload_bits(n_keep)
+    sparse, n_keep = _topk_at(_rows(g), thr)
+    return sparse.reshape(g.shape), topk_payload_bits(n_keep)
 
 
 # ---------------------------------------------------------------------------
 # Whole-tensor operators of Track B (one parameter leaf of any shape)
+#
+# ``group`` (a `launch.mesh.AxisGroup`: ``.size``, a fixed-order ``.sum``
+# and an exact ``.max`` over the ranks holding the other shards) makes a
+# leaf SHARD's compression that of the whole leaf: max |x| is the max of
+# the shards' maxima, the histogram against it is the sum of the shards'
+# int32 counts (in int64), so the threshold is the whole leaf's bit for
+# bit; the compressed set's count, Σ|x| and max combine the same way and
+# the kernels run on the shard. With ``group=None`` (or a group of one
+# rank) the leaf is whole.
 # ---------------------------------------------------------------------------
 
 def _leaf_row(x: torch.Tensor) -> torch.Tensor:
-    """A leaf as one f32 row [1, numel]: the reference thresholds the whole
-    leaf (its ``_bisect_threshold`` reshapes to [-1])."""
+    """A leaf (or a leaf's shard) as one f32 row [1, numel]: the reference
+    thresholds the whole leaf (its ``_bisect_threshold`` reshapes to
+    [-1])."""
     n = x.numel()
     if n >= 2 ** 31:
         # the compress kernel counts the compressed set in int32
         raise ValueError(f"a leaf of {n} elements overflows the int32 count "
-                         "of the compressed set")
+                         "of the compressed set; shard it")
     return x.reshape(1, n).to(torch.float32)
 
 
@@ -283,25 +309,56 @@ def _ratio_row(ratio, device) -> torch.Tensor:
     return torch.as_tensor(ratio, dtype=torch.float32).reshape(1).to(device)
 
 
-def fused_hybrid_roundtrip(x: torch.Tensor, local: torch.Tensor, ratio
-                           ) -> tuple[torch.Tensor, torch.Tensor]:
+def _split(group) -> bool:
+    return group is not None and group.size > 1
+
+
+def _group_threshold(xr: torch.Tensor, ratio: torch.Tensor, group
+                     ) -> torch.Tensor:
+    """`fused_threshold` of the whole leaf whose shard is ``xr`` [1, n]."""
+    max_abs = group.max(torch.linalg.vector_norm(xr, float("inf"), dim=-1))
+    hist = group.sum(_tt.magnitude_histogram(xr, max_abs).to(torch.int64))
+    cdf = torch.cumsum(hist, dim=-1).to(torch.float32)
+    return threshold_from_cdf(cdf, max_abs, ratio)
+
+
+def fused_hybrid_roundtrip(x: torch.Tensor, local: torch.Tensor, ratio,
+                           group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused compress→recover of one leaf against the stale ``local`` (same
     shape), in f32: the threshold from one histogram of the whole leaf,
     then the Fig.-3 sender and receiver. Returns (recovered f32 [x.shape],
-    payload bits [1])."""
+    payload bits [1]). With ``group``, ``x`` and ``local`` are this rank's
+    shards of the leaf and the bits are the whole leaf's."""
     xr = _leaf_row(x)
-    thr = fused_threshold(xr, _ratio_row(ratio, xr.device))
-    kept, sign, count, sum_abs, max_abs = fused_compress(xr, thr)
+    rr = _ratio_row(ratio, xr.device)
+    if not _split(group):
+        thr = fused_threshold(xr, rr)
+        kept, sign, count, sum_abs, max_abs = fused_compress(xr, thr)
+        n = x.numel()
+    else:
+        thr = _group_threshold(xr, rr, group)
+        kept, sign, count, sum_abs, max_abs = fused_compress(xr, thr)
+        count = group.sum(count.to(torch.int64))
+        sum_abs, max_abs = group.sum(sum_abs), group.max(max_abs)
+        n = x.numel() * group.size
     del xr
     mean_abs = sum_abs / torch.clamp(count, min=1).to(torch.float32)
     rec = fused_recover(kept, sign, _leaf_row(local), mean_abs, max_abs)
-    return rec.reshape(x.shape), hybrid_payload_bits(x.numel(), count)
+    return rec.reshape(x.shape), hybrid_payload_bits(n, count)
 
 
-def fused_topk(g: torch.Tensor, ratio) -> tuple[torch.Tensor, torch.Tensor]:
+def fused_topk(g: torch.Tensor, ratio, group=None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k sparsify one leaf at its whole-leaf histogram threshold.
-    Returns (sparse [g.shape] in g's dtype, payload bits [1])."""
+    Returns (sparse [g.shape] in g's dtype, payload bits [1]); with
+    ``group``, of this rank's shard at the whole leaf's threshold, and the
+    whole leaf's bits."""
     gr = _leaf_row(g)
-    thr = fused_threshold(gr, _ratio_row(ratio, g.device))
-    sparse, bits = topk_sparsify_at(gr, thr)
-    return sparse.to(g.dtype).reshape(g.shape), bits
+    rr = _ratio_row(ratio, g.device)
+    split = _split(group)
+    thr = (_group_threshold(gr, rr, group) if split
+           else fused_threshold(gr, rr))
+    del gr                          # the selection reads g in its dtype
+    sparse, n_keep = _topk_at(g.reshape(1, -1), thr)
+    return (sparse.reshape(g.shape),
+            topk_payload_bits(group.sum(n_keep) if split else n_keep))

@@ -26,15 +26,27 @@ round: the upload sum (`fixed_order_sum`) and the per-participant outputs
   own group with `init_distributed`); ``torchrun`` does the same for a
   script.
 
+Track B's pod meshes are `Mesh`: named axes (("pod",) "data", "model"),
+one rank per mesh position in row-major rank order (the device order of
+``jax.make_mesh``), and one process group per set of axes a collective
+runs over. `make_mesh` builds one over the current world,
+`make_local_mesh` the (1, 1) mesh of a world of 1 and
+`make_production_mesh` the (16, 16) or (2, 16, 16) mesh of 256 or 512
+ranks; `abstract_mesh` has the shape only (for the partition specs).
+Every collective of a `Mesh` is an all-gather folded left in ascending
+rank order (`Mesh.sum_axis`) or an all-reduce MAX (`Mesh.max_axis`), so
+its bits do not depend on the backend's reduce tree.
+
 Nothing touches ``torch.distributed`` on import. ``shard_map_compat`` and
 ``host_local_array`` have no counterpart here (SPMD ranks take their
-place); the pod meshes of Track B (``make_production_mesh``,
-``make_local_mesh``) are not ported yet (ROADMAP queue 1 item 13).
+place).
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
+import math
 import os
 import time
 
@@ -187,3 +199,231 @@ def spawn(fn, world: int, args: tuple = (), timeout_s: float = 600.0
             if p.is_alive():
                 p.kill()
                 p.join()
+
+
+# ---------------------------------------------------------------------------
+# Track B's pod meshes
+# ---------------------------------------------------------------------------
+
+def axis_tuple(axes) -> tuple:
+    """An axis name, a tuple of names or None (a spec entry, say) as a
+    tuple of names."""
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """One rank's view of a named mesh: the axis names and sizes, this
+    rank's coordinate on each axis, its device and its global rank, and
+    the process groups of `make_mesh` (keyed by the frozenset of the axes
+    a group spans; a set whose ranks are the whole world uses the world's
+    group, and a set of size 1 has none). ``abstract`` meshes have the
+    shape only: their collectives raise."""
+    axis_names: tuple
+    sizes: tuple
+    coords: tuple
+    device: torch.device
+    rank: int = 0
+    groups: dict = dataclasses.field(default_factory=dict)
+    abstract: bool = False
+
+    @property
+    def shape(self) -> dict:
+        """{axis name: size}, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+    def axis_index(self, name: str) -> int:
+        return self.coords[self.axis_names.index(name)]
+
+    def axis_size(self, name: str) -> int:
+        return self.sizes[self.axis_names.index(name)]
+
+    def live_axes(self, axes) -> tuple:
+        """The axes of ``axes`` with more than one rank, in mesh order."""
+        axes = axis_tuple(axes)
+        for a in axes:
+            if a not in self.axis_names:
+                raise ValueError(f"no axis {a!r} in mesh {self.axis_names}")
+        return tuple(a for a in self.axis_names
+                     if a in axes and self.axis_size(a) > 1)
+
+    def index_over(self, axes) -> int:
+        """This rank's row-major index over ``axes`` (in the order given)."""
+        idx = 0
+        for a in axis_tuple(axes):
+            idx = idx * self.axis_size(a) + self.axis_index(a)
+        return idx
+
+    def size_over(self, axes) -> int:
+        return math.prod(self.axis_size(a) for a in axis_tuple(axes))
+
+    def _parts(self, x: torch.Tensor, axes) -> list:
+        """Every rank's ``x`` over ``axes``, ordered row-major over the
+        axes in the order given (one part when they span one rank)."""
+        live = self.live_axes(axes)
+        if not live:
+            return [x]
+        if self.abstract:
+            raise RuntimeError("an abstract mesh has no process groups")
+        group = self.groups[frozenset(live)]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size_over(live))]
+        dist.all_gather(parts, x, group=group)
+        order = tuple(a for a in axis_tuple(axes) if a in live)
+        if order == live:
+            return parts
+        # group ranks ascend in mesh order; reorder to the order given
+        ranked = list(itertools.product(*(range(self.axis_size(a))
+                                          for a in live)))
+        pos = {a: i for i, a in enumerate(live)}
+        out = [None] * len(parts)
+        for part, c in zip(parts, ranked):
+            j = 0
+            for a in order:
+                j = j * self.axis_size(a) + c[pos[a]]
+            out[j] = part
+        return out
+
+    def all_gather_axis(self, x: torch.Tensor, axes, dim: int = 0
+                        ) -> torch.Tensor:
+        """The ranks' blocks of ``x`` over ``axes`` concatenated along
+        ``dim`` (row-major over the axes in the order given)."""
+        parts = self._parts(x, axes)
+        return x if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+    def sum_axis(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Σ of ``x`` over the ranks of ``axes``, folded left in ascending
+        rank order on every rank (``x`` itself over one rank)."""
+        parts = self._parts(x, axes)
+        acc = parts[0]
+        for p in parts[1:]:
+            acc = acc + p
+        return acc
+
+    def max_axis(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """The elementwise max of ``x`` over the ranks of ``axes`` (an
+        all-reduce MAX, exact in any order; ``x`` itself over one rank)."""
+        live = self.live_axes(axes)
+        if not live:
+            return x
+        if self.abstract:
+            raise RuntimeError("an abstract mesh has no process groups")
+        out = x.detach().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX,
+                        group=self.groups[frozenset(live)])
+        return out
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh (nothing over one rank)."""
+        if self.size > 1:
+            if self.abstract:
+                raise RuntimeError("an abstract mesh has no process groups")
+            dist.barrier()
+
+    def group(self, axes) -> "AxisGroup":
+        return AxisGroup(self, axis_tuple(axes))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class AxisGroup:
+    """The ranks of ``mesh`` that differ only along ``axes``: the shards of
+    one leaf, for the compression operators' ``group=``."""
+    mesh: Mesh
+    axes: tuple
+
+    @property
+    def size(self) -> int:
+        return self.mesh.size_over(self.axes)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mesh.sum_axis(x, self.axes)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mesh.max_axis(x, self.axes)
+
+
+def _check_shape(shape, names) -> tuple:
+    shape, names = tuple(int(s) for s in shape), tuple(names)
+    if len(shape) != len(names) or len(set(names)) != len(names):
+        raise ValueError(f"mesh shape {shape} and names {names} do not "
+                         "match")
+    if any(s < 1 for s in shape):
+        raise ValueError(f"mesh shape {shape} has an empty axis")
+    return shape, names
+
+
+def _coords(rank: int, shape: tuple) -> tuple:
+    out = []
+    for s in reversed(shape):
+        out.append(rank % s)
+        rank //= s
+    return tuple(reversed(out))
+
+
+def abstract_mesh(shape, names) -> Mesh:
+    """A mesh of ``shape`` with no world behind it (coordinates 0, the
+    ``meta`` device): for the partition specs, as
+    ``jax.sharding.AbstractMesh``."""
+    shape, names = _check_shape(shape, names)
+    return Mesh(axis_names=names, sizes=shape, coords=(0,) * len(shape),
+                device=torch.device("meta"), abstract=True)
+
+
+def make_mesh(shape, names, device="cuda") -> Mesh:
+    """The mesh ``shape`` over the current world (a world of 1 when no
+    process group is up), one rank per position in row-major rank order,
+    with a process group for every set of axes spanning more than one
+    rank (every rank creates every group, in one order). Raises
+    ``ValueError`` when the world size is not ``prod(shape)``."""
+    shape, names = _check_shape(shape, names)
+    up = dist.is_available() and dist.is_initialized()
+    rank, world = (dist.get_rank(), dist.get_world_size()) if up else (0, 1)
+    if world != math.prod(shape):
+        raise ValueError(f"a {shape} mesh over {names} needs "
+                         f"{math.prod(shape)} ranks; the world has {world}")
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' but torch.cuda.is_available() is "
+                           "False; pass device='cpu' to run on the CPU")
+    dev = rank_device(device, int(os.environ.get("LOCAL_RANK", rank)))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    groups = {}
+    live = [i for i, s in enumerate(shape) if s > 1]
+    for r in range(1, len(live) + 1):
+        for sub in itertools.combinations(live, r):
+            key = frozenset(names[i] for i in sub)
+            if math.prod(shape[i] for i in sub) == world:
+                groups[key] = dist.group.WORLD
+                continue
+            rest = [i for i in range(len(shape)) if i not in sub]
+            mine = None
+            for fixed in itertools.product(*(range(shape[i]) for i in rest)):
+                members = [g for g in range(world)
+                           if all(_coords(g, shape)[i] == c
+                                  for i, c in zip(rest, fixed))]
+                pg = dist.new_group(members)
+                if rank in members:
+                    mine = pg
+            groups[key] = mine
+    return Mesh(axis_names=names, sizes=shape, coords=_coords(rank, shape),
+                device=dev, rank=rank, groups=groups)
+
+
+def make_local_mesh(device="cuda") -> Mesh:
+    """The (1, 1) ("data", "model") mesh of a world of 1."""
+    return make_mesh((1, 1), ("data", "model"), device)
+
+
+def make_production_mesh(multi_pod: bool = False, device="cuda") -> Mesh:
+    """16 × 16 = 256 ranks per pod; ``multi_pod`` adds a "pod" axis of 2
+    (512 ranks). Raises ``ValueError`` naming the rank count in a world of
+    any other size: it never shrinks to fit."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, names, device)

@@ -1,6 +1,6 @@
-"""End-to-end Track-B training driver (cohort-mode Caesar, one pod) — the
-port of ``repro.launch.train``: Caesar round scheduling, checkpoint/restart
-and resume, on the card unless ``--device cpu`` is given.
+"""End-to-end Track-B training launcher (cohort-mode Caesar) — the port of
+``repro.launch.train``: Caesar round scheduling, checkpoint/restart and
+resume, on the card unless ``--device cpu`` is given.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
@@ -9,6 +9,15 @@ Examples:
       --error-feedback          # Qwen1.5-4B at full width on the card
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \
       --smoke --device cpu --steps 4   # any arch of repro_torch.configs
+
+The step runs on a pod mesh (`launch.mesh.Mesh`): by default the (1, 1)
+local mesh of one process, as the reference's ``main``; with
+``--production-mesh`` the (16, 16) mesh over a torchrun world of 256
+ranks (anything else raises); from Python, ``run(args, mesh=...)`` takes
+any mesh over the current world, e.g. ``make_mesh((2, 2, 2), ("pod",
+"data", "model"))`` in a world of 8. Every rank draws the same global
+batch and the step takes its own rows; rank 0 logs, and saves the
+gathered state, which every rank restores whole and then shards.
 
 ``--arch`` takes every arch id: the encoder trains on audio frames, the VLM
 on image patches plus ``seq − n_patches`` text tokens (InternVL2's 256
@@ -35,6 +44,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import rng as RNG
 from repro_torch.core import staleness as ST
 from repro_torch.fl import distributed as D
+from repro_torch.launch import mesh as MESH
 from repro_torch.models import model as M
 
 
@@ -91,24 +101,32 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="not ported (ROADMAP queue 1 item 13)")
+                    help="the (16, 16) data x model mesh over a torchrun "
+                    "world of 256 ranks")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     return ap
 
 
-def run(args, log: Callable[[str], None] = print, cfg=None) -> dict:
+def run(args, log: Callable[[str], None] = print, cfg=None,
+        mesh=None, on_step: Callable | None = None) -> dict:
     """Train ``args.steps`` steps (from the latest checkpoint, if any).
     ``cfg`` replaces the model config that ``--arch``/``--smoke`` name
-    (a caller's cut of depth; ``--tau`` still applies). Returns the final
-    state, the step function, the per-step losses and host walls, and the
-    step the run started from."""
-    if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh (pods over a 'pod' axis, sharded params) is "
-            "not ported to repro_torch yet (ROADMAP queue 1 item 13)")
+    (a caller's cut of depth; ``--tau`` still applies); ``mesh`` replaces
+    the local mesh (a smaller mesh than ``--production-mesh``);
+    ``on_step(t, state, loss)`` runs on every rank after each step. Returns
+    this rank's final state, the step function, the mesh, the per-step
+    losses and host walls, and the step the run started from."""
     dev = M.resolve_device(args.device)
+    if args.production_mesh:
+        MESH.init_distributed(device=dev)
+        mesh = MESH.make_production_mesh(device=dev)
+    elif mesh is None:
+        mesh = MESH.make_local_mesh(dev)
+    M.check_mesh(mesh, dev)
+    dev = mesh.device
+    lead = mesh.rank == 0
     if cfg is None:
         cfg = configs.get(args.arch)
         if args.smoke:
@@ -118,17 +136,28 @@ def run(args, log: Callable[[str], None] = print, cfg=None) -> dict:
                         use_error_feedback=args.error_feedback)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = M.init_params(cfg, gen, dev)
-    state = D.init_state(params, dcfg)
+    state = D.init_state(params, dcfg, mesh, cfg)
     del params
-    step_fn = D.make_train_step(cfg, dcfg, device=dev)
+    step_fn = D.make_train_step(cfg, dcfg, mesh, device=dev)
 
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start = 0
-    if mgr:
-        got = mgr.restore_latest(state)
+    if mgr and mgr.steps():
+        # every rank restores the whole tree, then keeps its part
+        got = mgr.restore_latest(D.gather_state(state, cfg, dcfg, mesh))
         if got:
-            state, start = got
-            log(f"[train] resumed from checkpoint step {start}")
+            state, start = D.shard_state(got[0], cfg, dcfg, mesh), got[1]
+            if lead:
+                log(f"[train] resumed from checkpoint step {start}")
+
+    def save(step: int) -> None:
+        whole = D.gather_state(state, cfg, dcfg, mesh)
+        if lead:
+            mgr.save(whole, step)
+        # no rank goes on (and may look for this checkpoint) before it
+        # is written
+        mesh.barrier()
+
     rng = RNG.stream(args.seed, RNG.KIND_DATASET)
     for _ in range(start):                   # the batches already taken
         make_batch(rng, cfg, args.batch, args.seq, "cpu")
@@ -146,15 +175,19 @@ def run(args, log: Callable[[str], None] = print, cfg=None) -> dict:
         loss = float(metrics["loss"])
         walls.append(time.perf_counter() - t0)
         losses.append(loss)
-        log(f"[train] step {t:4d} loss={loss:.4f} θ_d={theta_d:.3f} "
-            f"θ_u={args.theta_u} ({walls[-1]:.2f}s)")
+        if on_step is not None:
+            on_step(t, state, loss)
+        if lead:
+            log(f"[train] step {t:4d} loss={loss:.4f} θ_d={theta_d:.3f} "
+                f"θ_u={args.theta_u} ({walls[-1]:.2f}s)")
         if mgr and (t + 1) % args.ckpt_every == 0:
-            mgr.save(state, t + 1)
-            log(f"[train] checkpointed step {t + 1}")
+            save(t + 1)
+            if lead:
+                log(f"[train] checkpointed step {t + 1}")
     if mgr:
-        mgr.save(state, args.steps)
-    return {"state": state, "step_fn": step_fn, "cfg": cfg, "losses": losses,
-            "walls": walls, "start": start}
+        save(args.steps)
+    return {"state": state, "step_fn": step_fn, "cfg": cfg, "mesh": mesh,
+            "losses": losses, "walls": walls, "start": start}
 
 
 def main(argv=None):

@@ -1,14 +1,15 @@
-"""The LM zoo, counterpart of ``repro.models.model`` without a mesh
-(``mesh=None`` only): dense / MoE (with GQA or MLA) / SSM (Mamba2) /
-hybrid (Zamba2) / encoder (audio frontend) / VLM (vision frontend).
+"""The LM zoo, counterpart of ``repro.models.model``: dense / MoE (with
+GQA or MLA) / SSM (Mamba2) / hybrid (Zamba2) / encoder (audio frontend) /
+VLM (vision frontend).
 
 Public API (functions of a params dict, as the reference's pytree):
     init_params(cfg, generator, device)          -> params
     init_abstract(cfg)                           -> params on ``meta``
     from_reference(params_numpy_pytree, cfg, device) -> params (a copy)
     init_cache(cfg, batch, seq, device)          -> cache
-    forward(params, batch, cfg, device)          -> logits [B, S, V]
-    loss_fn(params, batch, cfg, device)          -> mean next-token CE
+    param_specs(cfg, mesh), dp_axes, batch_spec  -> partition specs
+    forward(params, batch, cfg, device, mesh)    -> logits [B, S, V]
+    loss_fn(params, batch, cfg, device, mesh)    -> mean next-token CE
     prefill(params, batch, cfg, device)          -> last-position logits
     decode_step(params, cache, batch, length, cfg, device) -> (logits, cache)
     generate(params, cfg, prompt, new_tokens, device)      -> new tokens
@@ -37,15 +38,27 @@ gradients come from ``torch.autograd`` through `forward` (the train-path
 `layers.flash_attention` is plain torch, as in the reference, and
 differentiable). Track-B's cohort round (`repro_torch.fl.distributed`)
 trains through it.
+
+Under a pod mesh (a `launch.mesh.Mesh`, one rank per position) `forward`
+and `loss_fn` take this rank's shards (`param_specs`, the reference's
+rules) and its rows of the batch: every leaf is gathered on use
+(`launch.sharding.use_param`, its gradient summed over the pod's batch
+axes), the routed experts stay split over "model" (`moe.moe_ffn`) and the
+token embedding is vocab-parallel where "model" divides the vocabulary.
+The dense matmuls are not split over "model" (each model rank computes
+them whole).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention import decode_attention
+from repro_torch.launch import sharding as SH
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import mla as MLA
@@ -180,6 +193,120 @@ def init_abstract(cfg: ModelConfig) -> Params:
     return _param_tree(cfg, L.ParamMaker(None, torch.device("meta")))
 
 
+# ===========================================================================
+# Partition specs (DESIGN.md §5), the reference's rules: fsdp = "data",
+# tp = "model"; an axis is dropped where the dim does not divide. A spec is
+# a tuple with one entry per dim: None, an axis name or a tuple of names.
+# ===========================================================================
+
+def _map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over nested dicts; None subtrees stay None."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, tree[k], path + (k,))
+                for k in sorted(tree)}
+    return fn(path, tree)
+
+
+def param_specs(cfg: ModelConfig, mesh) -> Params:
+    """The spec of every leaf of ``init_abstract(cfg)`` on ``mesh`` (any
+    object with ``axis_names`` and ``shape``); all-replicated ``()`` specs
+    without a mesh."""
+    if mesh is None:
+        return _map_with_path(lambda _p, _l: (), init_abstract(cfg))
+    axes = tuple(mesh.axis_names)
+    fsdp = tuple(a for a in axes if a != "model" and a != "pod")
+    fsdp = fsdp[0] if len(fsdp) == 1 else fsdp
+    tp = "model"
+    sizes = dict(mesh.shape)
+    fsdp_size = sizes.get("data", 1)
+    tp_size = 1 if cfg.dp_only else sizes.get("model", 1)
+
+    def div(dim, axis, size):
+        return axis if (axis is not None and dim % size == 0
+                        and size > 1) else None
+
+    def spec_for(names, leaf):
+        shape = tuple(leaf.shape)
+        stacked = bool(names) and names[0] in ("layers", "dense_layers",
+                                               "moe_layers")
+        core = shape[1:] if stacked else shape
+        nm = names[-1]
+        parent = names[-2] if len(names) > 1 else ""
+
+        def out(*core_spec):
+            core_spec = list(core_spec) + [None] * (len(core)
+                                                    - len(core_spec))
+            return tuple(([None] if stacked else []) + core_spec)
+
+        if len(core) == 0:
+            return ()
+        if nm == "embed":
+            return out(div(core[0], tp, tp_size), None)
+        if nm == "lm_head":
+            return out(div(core[0], fsdp, fsdp_size),
+                       div(core[1], tp, tp_size))
+        if nm == "router":
+            return out(None, None)
+        if parent != "shared" and nm in ("w_gate", "w_up") and len(core) == 3:
+            # routed experts [E, d, f]: EP over tp, FSDP over d
+            return out(div(core[0], tp, tp_size),
+                       div(core[1], fsdp, fsdp_size), None)
+        if nm == "w_down" and len(core) == 3:
+            return out(div(core[0], tp, tp_size), None,
+                       div(core[2], fsdp, fsdp_size))
+        if parent == "shared" and nm in ("w_gate", "w_up"):
+            return out(None, div(core[1], tp, tp_size))
+        if parent == "shared" and nm == "w_down":
+            return out(div(core[0], tp, tp_size), None)
+        if nm in ("wq", "wk", "wv", "w_gate", "w_up", "w_uq", "w_zx"):
+            return out(div(core[0], fsdp, fsdp_size),
+                       div(core[1], tp, tp_size))
+        if nm in ("wo", "w_down", "w_out"):
+            return out(div(core[0], tp, tp_size),
+                       div(core[1], fsdp, fsdp_size))
+        if nm in ("w_uk", "w_uv"):   # [kv_lora, H, hd]: TP over heads
+            return out(None, div(core[1], tp, tp_size), None)
+        if nm in ("w_dq", "w_dkv", "w_bcdt", "frontend_proj"):
+            return out(div(core[0], fsdp, fsdp_size), None)
+        if nm in ("bq", "bk", "bv"):
+            return out(div(core[0], tp, tp_size))
+        if nm == "norm":             # mamba gated-norm scale [d_inner]
+            return out(div(core[0], tp, tp_size))
+        return out(*([None] * len(core)))
+
+    return _map_with_path(spec_for, init_abstract(cfg))
+
+
+@functools.lru_cache(maxsize=32)
+def _cached_specs(cfg: ModelConfig, mesh) -> Params:
+    """`param_specs` of a (config, mesh) pair, built once (read only)."""
+    return param_specs(cfg, mesh)
+
+
+def dp_axes(cfg: ModelConfig, mesh, manual_axes=()) -> tuple:
+    """Axes carrying the batch: the non-model axes (+ "model" under
+    ``dp_only``), without ``manual_axes``."""
+    axes = tuple(a for a in mesh.axis_names if a not in manual_axes)
+    if cfg.dp_only:
+        return axes
+    return tuple(a for a in axes if a != "model")
+
+
+def spec_entry(axes):
+    """One spec entry of a tuple of axis names, as PartitionSpec keeps it:
+    None for none, the name for one, the tuple for more."""
+    axes = tuple(axes)
+    return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
+def batch_spec(cfg: ModelConfig, mesh) -> tuple:
+    if mesh is None:
+        return ()
+    return (spec_entry(dp_axes(cfg, mesh)),)
+
+
 def _to_tensor(a, dev: torch.device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":                # ml_dtypes, no torch twin
@@ -286,7 +413,8 @@ def _gqa_attention(x, p, cfg, rope, cache=None, length=None):
     return torch.matmul(y, p["wo"]), new_cache
 
 
-def _attn_ffn_layer(x, lp, cfg, rope, cache=None, length=None, moe=False):
+def _attn_ffn_layer(x, lp, cfg, rope, cache=None, length=None, moe=False,
+                    mesh=None):
     h = x
     xa = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
     if cfg.use_mla:
@@ -302,8 +430,10 @@ def _attn_ffn_layer(x, lp, cfg, rope, cache=None, length=None, moe=False):
     xf = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
     fp = lp["ffn"]
     if moe:
-        fo = MOE.moe_ffn(xf, fp, cfg)
-        if cfg.n_shared_experts:
+        # under a mesh moe_ffn takes the rank's shards and runs the shared
+        # expert itself, in its model-parallel region
+        fo = MOE.moe_ffn(xf, fp, cfg, mesh)
+        if cfg.n_shared_experts and mesh is None:
             sp = fp["shared"]
             fo = fo + L.swiglu(xf, sp["w_gate"], sp["w_up"], sp["w_down"])
     else:
@@ -321,17 +451,23 @@ def _rope(cfg, positions):
 
 
 def _scan_layers(x, stacked, cfg, positions, caches=None, length=None,
-                 moe=False):
+                 moe=False, use=None, stack=None):
     """The attention layer stack in order (the reference's ``lax.scan``);
     an empty stack (None) passes x through. ``caches``: a dict of [L, ...]
-    tensors ({"k", "v"}, or MLA's {"c", "k_rope"}), written in place."""
+    tensors ({"k", "v"}, or MLA's {"c", "k_rope"}), written in place.
+    ``use`` (a `_Use`, under a mesh) gathers each layer's shards of the
+    stack named ``stack`` as the layer runs; a MoE layer's FFN stays with
+    `moe.moe_ffn`."""
     if stacked is None:
         return x, caches
     rope = _rope(cfg, positions)
     for i, lp in enumerate(_unstack(stacked, _n_stacked(stacked))):
         cache = (None if caches is None else
                  {k: v[i] for k, v in caches.items()})
-        x, _ = _attn_ffn_layer(x, lp, cfg, rope, cache, length, moe)
+        if use is not None:
+            lp = use.layer(lp, stack, keep=("ffn",) if moe else ())
+        x, _ = _attn_ffn_layer(x, lp, cfg, rope, cache, length, moe,
+                               None if use is None else use.mesh)
     return x, caches
 
 
@@ -378,19 +514,22 @@ def _hybrid_segments(cfg) -> list:
     return segs
 
 
-def _hybrid(x, params, cfg, positions, cache=None, length=None):
+def _hybrid(x, params, cfg, positions, cache=None, length=None, use=None):
     """Zamba2's stack: before each segment of ``attn_every`` Mamba2 layers,
     the shared block on concat([h, embedding]) (cache["shared"] slice si
     for application si in decode)."""
     x0 = x
     rope = _rope(cfg, positions)
     layers = _unstack(params["layers"], cfg.n_layers)
+    shared = params["shared_attn"]
+    if use is not None:
+        layers = [use.layer(lp, "layers") for lp in layers]
+        shared = use.top("shared_attn")
     off = 0
     for si, seg in enumerate(_hybrid_segments(cfg)):
         sc = (None if cache is None else
               {k: v[si] for k, v in cache["shared"].items()})
-        x, _ = _shared_attn_block(x, x0, params["shared_attn"], cfg, rope,
-                                  sc, length)
+        x, _ = _shared_attn_block(x, x0, shared, cfg, rope, sc, length)
         x = _scan_mamba(
             x, layers[off:off + seg], cfg,
             None if cache is None else cache["ssm"][off:off + seg],
@@ -403,23 +542,41 @@ def _hybrid(x, params, cfg, positions, cache=None, length=None):
 # Embedding / frontend
 # ===========================================================================
 
-def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def _vocab_parallel(cfg: ModelConfig, mesh) -> bool:
+    n_model = mesh.shape.get("model", 1)
+    return (not cfg.dp_only) and cfg.vocab % n_model == 0 and n_model > 1
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, cfg=None,
+                 mesh=None) -> torch.Tensor:
     """Rows of ``table`` for ``tokens``. ``F.embedding``, not ``table[tokens]``:
     the same values, but its backward on the card sums repeated tokens in a
     fixed order, where an indexed read's backward accumulates with atomics
     in no fixed order (same-input training steps must repeat bit for
-    bit)."""
-    return torch.nn.functional.embedding(tokens.long(), table)
+    bit).
+
+    Under a mesh whose "model" axis divides the vocabulary, ``table`` is
+    this rank's vocabulary block (the reference's vocab-parallel branch): a
+    masked local lookup, then `sharding.reduce_from_model`. Exactly one
+    rank's term is non-zero, so the sum is exact."""
+    if mesh is None or not _vocab_parallel(cfg, mesh):
+        return torch.nn.functional.embedding(tokens.long(), table)
+    vloc = cfg.vocab // mesh.shape["model"]
+    local = tokens.long() - mesh.axis_index("model") * vloc
+    ok = (local >= 0) & (local < vloc)
+    emb = torch.nn.functional.embedding(local.clamp(0, vloc - 1), table)
+    emb = torch.where(ok[..., None], emb, torch.zeros_like(emb))
+    return SH.reduce_from_model(emb, mesh)
 
 
-def embed_inputs(params, batch, cfg: ModelConfig) -> torch.Tensor:
+def embed_inputs(params, batch, cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """batch: {"tokens": [B,S]}, or {"frames": [B,S,F]} for the audio
     frontend, or {"tokens", "patches": [B,P,F]} for the vision frontend
     (patches first)."""
     if cfg.frontend == "audio":
         return torch.matmul(batch["frames"].to(_dtype(cfg)),
                             params["frontend_proj"])
-    tok = embed_lookup(params["embed"], batch["tokens"])
+    tok = embed_lookup(params["embed"], batch["tokens"], cfg, mesh)
     if cfg.frontend == "vision":
         patch = torch.matmul(batch["patches"].to(_dtype(cfg)),
                              params["frontend_proj"])
@@ -437,30 +594,93 @@ def _check_batch(params, batch, dev) -> None:
 # Train forward / loss
 # ===========================================================================
 
-def forward(params, batch, cfg: ModelConfig, device="cuda") -> torch.Tensor:
-    """Logits [B, S, V] of the full forward (causal but for the encoder)."""
+def check_mesh(mesh, dev: torch.device | None = None) -> Mesh:
+    """``mesh`` if it is a `launch.mesh.Mesh` (on ``dev``'s device type),
+    else TypeError (ValueError for another device)."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh or "
+                        f"None, got {type(mesh).__name__}")
+    if dev is not None and mesh.device.type != dev.type:
+        raise ValueError(f"the mesh's rank device is {mesh.device}, not "
+                         f"{dev}")
+    return mesh
+
+
+class _Use:
+    """The leaves of a rank's shards as the forward uses them under
+    ``mesh``: gathered on use over their spec's axes (FSDP), their
+    gradients summed over the pod's batch axes (`sharding.use_param`).
+    The token embedding keeps its block (vocab-parallel lookup) and a MoE
+    layer's FFN its shards (`moe.moe_ffn`)."""
+
+    def __init__(self, cfg: ModelConfig, mesh: Mesh, params):
+        self.mesh, self.params = mesh, params
+        self.specs = _cached_specs(cfg, mesh)
+        self.dp = dp_axes(cfg, mesh, ("pod",))
+        self._layer_specs = {}
+
+    def _tree(self, tree, specs, keep=()):
+        if isinstance(tree, dict):
+            return {k: (tree[k] if k in keep else self._tree(tree[k],
+                                                             specs[k]))
+                    for k in sorted(tree)}
+        return SH.use_param(tree, specs, self.mesh, self.dp)
+
+    def top(self, name):
+        if name == "embed":          # the block as stored: see embed_lookup
+            return SH.use_param(self.params[name], (), self.mesh, self.dp)
+        return self._tree(self.params[name], self.specs[name])
+
+    def layer(self, lp, stack: str, keep=()):
+        """One layer's dict of views of the stack ``stack`` (its specs
+        without the stack's leading None)."""
+        if stack not in self._layer_specs:
+            self._layer_specs[stack] = _map_with_path(
+                lambda _p, sp: sp[1:], self.specs[stack])
+        return self._tree(lp, self._layer_specs[stack], keep)
+
+
+def forward(params, batch, cfg: ModelConfig, device="cuda",
+            mesh=None) -> torch.Tensor:
+    """Logits [B, S, V] of the full forward (causal but for the encoder).
+
+    Under ``mesh`` (a `launch.mesh.Mesh`), ``params`` are this rank's
+    shards (`param_specs`) and ``batch`` its rows: each leaf is gathered
+    on use, the routed experts stay over "model" (`moe.moe_ffn`) and the
+    token embedding is vocab-parallel where "model" divides the
+    vocabulary."""
     dev = resolve_device(device)
     _check_batch(params, batch, dev)
-    x = embed_inputs(params, batch, cfg)
+    use = None if mesh is None else _Use(cfg, check_mesh(mesh, dev), params)
+    top = params if use is None else {
+        k: use.top(k) for k in ("embed", "frontend_proj", "final_norm",
+                                "lm_head") if k in params}
+    x = embed_inputs(top, batch, cfg, mesh)
     positions = torch.arange(x.shape[1], device=dev)
     fam = cfg.family
     if fam in ("dense", "encoder", "vlm"):
-        x, _ = _scan_layers(x, params["layers"], cfg, positions)
+        x, _ = _scan_layers(x, params["layers"], cfg, positions, use=use,
+                            stack="layers")
     elif fam == "moe":
-        x, _ = _scan_layers(x, params["dense_layers"], cfg, positions)
+        x, _ = _scan_layers(x, params["dense_layers"], cfg, positions,
+                            use=use, stack="dense_layers")
         x, _ = _scan_layers(x, params["moe_layers"], cfg, positions,
-                            moe=True)
+                            moe=True, use=use, stack="moe_layers")
     elif fam == "ssm":
-        x = _scan_mamba(x, _unstack(params["layers"], cfg.n_layers), cfg)
+        layers = _unstack(params["layers"], cfg.n_layers)
+        if use is not None:
+            layers = [use.layer(lp, "layers") for lp in layers]
+        x = _scan_mamba(x, layers, cfg)
     elif fam == "hybrid":
-        x = _hybrid(x, params, cfg, positions)
+        x = _hybrid(x, params, cfg, positions, use=use)
     else:
         raise ValueError(fam)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return torch.matmul(x, params["lm_head"])
+    x = L.rms_norm(x, top["final_norm"], cfg.norm_eps)
+    return torch.matmul(x, top["lm_head"])
 
 
-def loss_fn(params, batch, cfg: ModelConfig, device="cuda") -> torch.Tensor:
+def loss_fn(params, batch, cfg: ModelConfig, device="cuda",
+            mesh=None) -> torch.Tensor:
     """Mean cross entropy over the positions with ``labels >= 0``, as the
     reference's ``loss_fn``: the VLM's logits keep only the text positions,
     the decoders' logits and labels shift by one (the encoder's do not),
@@ -468,8 +688,14 @@ def loss_fn(params, batch, cfg: ModelConfig, device="cuda") -> torch.Tensor:
     model dtype, ``exp``/``log`` run in f32 and the label logit is read in
     f32. The label logit is a gather (the reference contracts a one-hot,
     which only a sharded vocabulary needs; the values and the gradient are
-    the same); masked labels are clamped to 0 for the gather and weigh 0."""
-    logits = forward(params, batch, cfg, device)
+    the same); masked labels are clamped to 0 for the gather and weigh 0.
+
+    Under ``mesh`` the pod's loss: the sum of the per-position losses and
+    the count of positions are summed over the pod's batch axes (in a
+    fixed order) before the division, as the reference's global mean
+    over the pod's rows; the gradient is this rank's rows' part of it,
+    which `sharding.use_param` sums over those axes."""
+    logits = forward(params, batch, cfg, device, mesh)
     labels = batch["labels"].to(torch.int64)
     if cfg.frontend == "vision":            # loss only on text positions
         logits = logits[:, cfg.n_patches:, :]
@@ -484,7 +710,12 @@ def loss_fn(params, batch, cfg: ModelConfig, device="cuda") -> torch.Tensor:
                              )[..., 0].to(torch.float32)
     ll = lab_logit - lse
     mask = (labels >= 0).to(torch.float32)
-    return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    total, count = -torch.sum(ll * mask), torch.sum(mask)
+    if mesh is not None:
+        dp = dp_axes(cfg, mesh, ("pod",))
+        total = SH.reduce_from(total, mesh, dp)
+        count = mesh.sum_axis(count, dp)
+    return total / torch.clamp(count, min=1.0)
 
 
 def prefill(params, batch, cfg: ModelConfig, device="cuda") -> torch.Tensor:
@@ -506,7 +737,12 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, device="cuda"):
     (SSM), plus {"shared": {"k", "v": [n_shared, B, S, Hkv, Dh]}} for the
     hybrid. The encoder raises ``ValueError``."""
     _no_decode(cfg)
-    dev = resolve_device(device)
+    return _init_cache(cfg, batch, seq, resolve_device(device))
+
+
+def _init_cache(cfg: ModelConfig, batch: int, seq: int,
+                dev: torch.device):
+    """`init_cache` on ``dev`` (also ``meta``, for the cache's shapes)."""
     dt = _dtype(cfg)
 
     def kv(n):

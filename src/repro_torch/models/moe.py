@@ -19,8 +19,14 @@ an indexed read accumulate with atomics in no fixed order):
 Routing takes the top k of the router's softmax with a stable descending
 sort, so exact ties go to the lower expert id as in ``jax.lax.top_k``.
 
-Under a mesh (experts over "model", FSDP over "data") the reference runs a
-``shard_map``; that is ROADMAP queue 1 item 13 and raises here.
+Under a `launch.mesh.Mesh` (the reference's ``shard_map`` branch) the
+experts are split over "model" and their weights FSDP-sharded over
+"data": each rank gathers its ``E / n_model`` experts over "data", routes
+its own tokens with the capacity of its token count, runs the shared
+expert on its slice of the hidden width, and one `sharding.
+reduce_from_model` sums the model ranks' parts; the input enters through
+`sharding.copy_to_model`. The router is replicated but each model rank
+computes other terms from it, so its gradient is summed over "model" too.
 """
 from __future__ import annotations
 
@@ -29,6 +35,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import sharding as SH
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import layers as L
 
 # when a list, `moe_ffn` appends one (ids [T, K], dropped [T]) per call:
@@ -147,18 +155,13 @@ def routed_experts_local(x2d, ids, wts, w_gate, w_up, w_down, e_start: int,
     return _fold_slots(terms, kept).to(x2d.dtype)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "MoE over a mesh (experts over 'model', FSDP over 'data') is "
-            "not ported to repro_torch yet (ROADMAP queue 1 item 13); pass "
-            "mesh=None")
-
-
 def moe_ffn(x: torch.Tensor, p: dict, cfg, mesh=None) -> torch.Tensor:
-    """x [B, S, d] → routed-experts output (shared experts handled by the
-    caller), on one device."""
-    _no_mesh(mesh)
+    """x [B, S, d] → routed-experts output. Without a mesh, on one device
+    (shared experts handled by the caller); under ``mesh``, ``x`` is this
+    rank's tokens, ``p`` its shards, and the output includes the shared
+    experts (`_moe_ffn_mesh`)."""
+    if mesh is not None:
+        return _moe_ffn_mesh(x, p, cfg, mesh)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     x2d = x.reshape(b * s, d)
@@ -170,6 +173,57 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg, mesh=None) -> torch.Tensor:
     if drops is not None:
         record_routes.append((ids, drops[0]))
     return y.reshape(b, s, d)
+
+
+def _moe_ffn_mesh(x, p, cfg, mesh) -> torch.Tensor:
+    """The expert-parallel branch: ``p`` holds this rank's routed experts
+    [E/n_model, d(/n_data), f] / [E/n_model, f, d(/n_data)], the router and
+    the shared experts' f-slices ([d, f/n_model] / [f/n_model, d])."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh or "
+                        f"None, got {type(mesh).__name__}")
+    if "model" not in mesh.axis_names:
+        raise ValueError(f"MoE under a mesh needs a 'model' axis, got "
+                         f"{mesh.axis_names}")
+    if cfg.dp_only:
+        raise ValueError("the dp_only policy is for TP-free (non-MoE) archs")
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.moe_top_k
+    n_model = mesh.axis_size("model")
+    e_m = e // n_model
+    if e_m * n_model != e:
+        raise ValueError(f"{e} experts do not divide over model={n_model}")
+    dp = tuple(a for a in mesh.axis_names if a not in ("pod", "model"))
+    # the reference's t_loc = (B // n_dp)·s: x holds this rank's rows
+    cap = _capacity(b * s, k, e, cfg.capacity_factor)
+    n_data = mesh.shape.get("data", 1)
+    d_shard = "data" if "data" in mesh.axis_names and d % n_data == 0 \
+        else None
+    wg = SH.use_param(p["w_gate"], (None, d_shard, None), mesh, dp)
+    wu = SH.use_param(p["w_up"], (None, d_shard, None), mesh, dp)
+    wd = SH.use_param(p["w_down"], (None, None, d_shard), mesh, dp)
+    router = SH.use_param(p["router"], (), mesh, dp + ("model",))
+    xl = SH.copy_to_model(x, mesh)
+    x2d = xl.reshape(b * s, d)
+    ids, wts = route(x2d, router, k)
+    drops = [] if record_routes is not None else None
+    y = routed_experts_local(x2d, ids, wts, wg, wu, wd,
+                             mesh.axis_index("model") * e_m, e, cap, drops)
+    if drops is not None:
+        record_routes.append((ids, drops[0]))
+    y = y.reshape(b, s, d)
+    if "shared" in p:
+        # the shared experts on this rank's slice of their hidden width,
+        # folded into the same sum over "model" as the routed output
+        sh = p["shared"]
+        f_all = cfg.d_ff_expert * cfg.n_shared_experts
+        if sh["w_gate"].shape[1] * n_model != f_all:
+            raise ValueError(f"the shared experts' width {f_all} does not "
+                             f"divide over model={n_model}")
+        sg, su, sd = (SH.use_param(sh[n], (), mesh, dp)
+                      for n in ("w_gate", "w_up", "w_down"))
+        y = y + L.swiglu(xl, sg, su, sd)
+    return SH.reduce_from_model(y, mesh)
 
 
 def init_moe_params(make: L.ParamMaker, cfg, dtype, ffn_init) -> dict:

@@ -277,9 +277,13 @@ def test_bf16_step_is_finite():
 
 
 def test_mesh_and_default_device_rules():
+    from repro_torch.launch import mesh as MESH
     _, cfg_t, _, _, _, _ = _setup()
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="Mesh"):
         TD.make_train_step(cfg_t, TD.DistConfig(), mesh=object(),
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="13c"):
+        TD.make_serve_step(cfg_t, mesh=MESH.make_local_mesh("cpu"),
                            device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
@@ -560,6 +564,6 @@ def test_launcher_smoke_resumes_where_it_stopped(tmp_path):
     for a, b in zip(TD.tree_leaves(resumed["state"].params),
                     TD.tree_leaves(straight["state"].params)):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="256"):
         train.run(train.parser().parse_args(base + ["--production-mesh"]),
                   log=quiet)
