@@ -8,8 +8,8 @@ store with eviction and offload, checkpoint/resume of the simulator,
 serving Qwen1.5-4B at full width and Track-B training of it, and serving
 and Track-B training of the LM zoo's other families at their published
 widths (Mamba2, Zamba2, InternVL2, HuBERT, Llama-4-Scout and DeepSeek-V3,
-the last two cut in depth), and Track B over a pod mesh of 4 ranks on the
-card.
+the last two cut in depth), Track B over a pod mesh of 4 ranks on the
+card, and serving under a mesh of 4 and 2 ranks on the card.
 
     python3 chip_smoke.py
 
@@ -45,6 +45,8 @@ Phases, each of which fails the script on any error:
    H=16 over Hkv=8, timed as in phase 3 beside the
    bytes bound and torch's scaled_dot_product_attention with a length mask
    (a yardstick only; the port never calls it); one CUDA kernel per call.
+   4b. the decode kernel's lse mode (phase 12's (e), below) at phase
+   12's per-rank shapes.
    After phases 3 and 4 and the paths, the scratch the histogram,
    compress and decode kernels leave zeroed between calls must be all
    zeros;
@@ -183,9 +185,9 @@ Phases, each of which fails the script on any error:
 10b. train the families: Track B as phase 8 runs it (batch 8, τ 1, θ_u
    0.35, θ_d max 0.6, EF), 3 steps each of Mamba2, Zamba2, HuBERT (audio
    frames [8, 128, 512]) and InternVL2 (seq 384: 256 patches + 128 text
-   tokens) at full size and Llama-4-Scout at full width and depth 1 —
-   finite losses, the histogram twice and compress and recover once per
-   leaf and step at one row, every leaf width among phase 3c's, no
+   tokens) at full width, InternVL2 at full depth and the other three at
+   depth 24, and Llama-4-Scout at depth 1 — finite losses, the histogram
+   twice and compress and recover once per leaf and step at one row, every leaf width among phase 3c's, no
    non-finite recovered download or upload; ms per step, tokens/s, peak
    memory; one more Llama-4 step run twice from the same state,
    bit-identical; one profiled Zamba2 step; then DeepSeek-V3's smoke
@@ -198,13 +200,37 @@ Phases, each of which fails the script on any error:
    twice bit-identical, and within loss rtol 2e-6, params rel. L2 1e-5
    and residuals 5e-4 outside at most 16 flips of the cpu ranks' run and
    of the meshless composition pod by pod on the card; (b) Qwen1.5-4B at
-   full width and 8 layers on (2, 2, 1) with error feedback and (c)
+   full width and 4 layers on (2, 2, 1) with error feedback and (c)
    Llama-4-Scout at full width and depth 1 on (1, 2, 2) without error
    feedback, 3 steps each through ``train.run`` — per rank the histogram twice and compress and
    recover once per leaf shard and step at one row (shard widths checked
    in phase 3c), losses finite and the same on every rank, every shard's
    replicas bit-identical after every step, every expert shard under
-   2^31; ms per step (the slowest rank), tokens/s, peak memory per rank.
+   2^31; ms per step (the slowest rank), tokens/s, peak memory per rank;
+12. serve mesh: serving and prefill under a ("data", "model") mesh of
+   gloo ranks sharing the card, each rank holding its shards of the
+   parameters and of the cache (`launch.specs.cache_specs`): (e), run as
+   phase 4b, the decode kernel's lse mode against its plain version at
+   each point's per-rank shapes (f32 3e-5, bf16 2e-2, lse 1e-5, the
+   output bit-equal to the call without lse, the f32 output of bf16
+   inputs rounding to it, one CUDA kernel), timed beside SDPA's
+   lse-returning call (each kv head's query heads folded into its query
+   length); (d) the (1, 1) local mesh
+   bit-identical to mesh=None (Qwen1.5-4B at depth 2, 3 steps); then at
+   published widths, bf16, against the meshless run on the card (which
+   picks the greedy tokens every rank is fed): (a) Qwen1.5-4B at 2 of
+   40 layers on (2, 2), batch 4 and kv heads split, prompt 4 then 4
+   greedy tokens through make_serve_step plus make_prefill; (b) the same
+   with one row and a cache seeded with 4,094 of its 4,096 positions,
+   the sequence over "data", 2 steps (the partials merged across
+   ranks); (c) Granite-34B at 1 layer on (1, 2), 2 ranks, its one kv
+   head leaving the sequence to "model", batch 2, 1,022 of 1,024
+   positions, 2 steps — logits rel. L2 5e-2 at every step, greedy tokens
+   equal on at least 90%, seeded positions untouched, written ones within
+   5e-2, ranks of a data block bit-identical, (f) the kernel launched
+   once per attention layer and step on every rank and its plain version
+   never; ms per step (the slowest rank), tokens/s, peak memory and
+   cache bytes per rank.
 
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. It exits non-zero without a CUDA device
@@ -230,6 +256,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12              # H100 SXM bf16 on the tensor cores, dense
 N_PARAMS = 164134                # cnn_har
 CHUNK = 25                       # auto_chunk at the dense HAR point
 EF_CHUNK = 17                    # the same with error feedback's 2 arrays
@@ -331,9 +358,13 @@ class _Timer:
         return per[len(per) // 2]
 
 
-def _bound(bytes_moved: float, f32_ops: float) -> tuple[float, str]:
+def _bound(bytes_moved: float, ops: float,
+           ops_per_s: float = F32_FLOPS) -> tuple[float, str]:
+    """The least time of the work: its bytes over HBM's rate or its
+    operations over the peak rate of their type (f32 by default), the
+    larger."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = f32_ops / F32_FLOPS * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -763,7 +794,8 @@ def phase_decode(torch, timer):
         bytes_moved = (2 * b * h * d * es + 2 * valid * hkv * d * es
                        + 4 * b)
         flops = 4.0 * valid * h * d
-        bms, by = _bound(bytes_moved, flops)
+        bms, by = _bound(bytes_moved, flops, F32_FLOPS if dt == "float32"
+                         else BF16_FLOPS)
         results[name] = dict(
             shape=f"q[{b},{h},{d}] kv[{b},{s},{hkv},{d}] {dt} "
                   f"lengths {lv if len(lv) <= 4 else 'full'}",
@@ -2100,6 +2132,13 @@ TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
 # depth, seq). Llama-4-Scout (~218 GB) and DeepSeek-V3 are cut in depth
 # to fit one card; DeepSeek keeps one dense and one MoE MLA layer.
 DEEPSEEK_ARCH = "deepseek-v3-671b"
+# The serve points run at full depth. The train points of Mamba2 (48
+# layers), Zamba2 (38: four shared-block applications left of seven) and
+# HuBERT (48) are cut to FAMILY_TRAIN_LAYERS, InternVL2's full depth, to
+# keep the script about 100 s inside its time limit: each train depth also
+# sets the leaf widths phase 3c times, and full depth costs about a minute
+# more there and in phase 10b (PERF.md §4)
+FAMILY_TRAIN_LAYERS = 24
 FAMILY_SERVE = {
     "serve_mamba2": ("mamba2-780m", None),
     "serve_zamba2": ("zamba2-1.2b", None),
@@ -2108,9 +2147,9 @@ FAMILY_SERVE = {
     "serve_deepseek": (DEEPSEEK_ARCH, 2),
 }
 FAMILY_TRAIN = {
-    "train_mamba2": ("mamba2-780m", None, 128),
-    "train_zamba2": ("zamba2-1.2b", None, 128),
-    "train_hubert": ("hubert-xlarge", None, 128),
+    "train_mamba2": ("mamba2-780m", FAMILY_TRAIN_LAYERS, 128),
+    "train_zamba2": ("zamba2-1.2b", FAMILY_TRAIN_LAYERS, 128),
+    "train_hubert": ("hubert-xlarge", FAMILY_TRAIN_LAYERS, 128),
     # 256 image patches + 128 text tokens: make_batch leaves seq − 256
     "train_internvl2": ("internvl2-2b", None, 384),
     "train_llama4": ("llama4-scout-17b-a16e", 1, 128),
@@ -2119,8 +2158,8 @@ FAMILY_TRAIN = {
 FAMILY_PARAMS = {
     "serve_mamba2": 857_219_328, "serve_zamba2": 1_245_814_912,
     "serve_internvl2": 1_891_244_032, "serve_llama4": 6_473_180_160,
-    "serve_deepseek": 13_944_134_656, "train_mamba2": 857_219_328,
-    "train_zamba2": 1_245_814_912, "train_hubert": 1_260_360_960,
+    "serve_deepseek": 13_944_134_656, "train_mamba2": 505_840_512,
+    "train_zamba2": 887_663_104, "train_hubert": 631_153_920,
     "train_internvl2": 1_891_244_032, "train_llama4": 4_271_078_400,
 }
 FAMILY_TRAIN_STEPS = 3
@@ -3204,12 +3243,13 @@ POD_PARITY_DIST = dict(theta_d=0.3, theta_u=0.35, local_lr=1e-2,
 # slices beyond
 POD_FLIP_MAX, POD_MOVED_MAX, POD_EF_REL, POD_ULPS = 16, 1, 5e-4, 2
 # (b), (c): published widths, bf16, phase 8's settings: (arch, depth,
-# mesh shape, extra launcher flags). Qwen1.5-4B's depth is cut to what two
-# pods' state, four ranks on one card, leaves room for (PERF.md §4 has
-# the reckoning); Llama-4-Scout at phase 10b's depth 1 and without error
-# feedback, whose residual (one more copy of every rank's shards) does
-# not fit beside the rest
-POD_QWEN_LAYERS = 8
+# mesh shape, extra launcher flags). Qwen1.5-4B's depth is cut below what
+# two pods' state, four ranks on one card, leaves room for (8 layers fit,
+# 12 did not: PERF.md §4), to 4, so that the script with phase 12 stays
+# well inside its time limit; Llama-4-Scout at phase 10b's depth 1 and
+# without error feedback, whose residual (one more copy of every rank's
+# shards) does not fit beside the rest
+POD_QWEN_LAYERS = 4
 POD_FULL = {
     "pod_qwen": ("qwen1.5-4b", POD_QWEN_LAYERS, (2, 2, 1),
                  ["--error-feedback"]),
@@ -3564,6 +3604,453 @@ def phase_pod_mesh(torch, checked_sizes, full=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: serving and prefill under a mesh (ROADMAP item 13c(a))
+# ---------------------------------------------------------------------------
+
+SERVE_MESH_NAMES = ("data", "model")
+SERVE_MESH_TIMEOUT_S = 600.0
+# published widths, bf16, depth cut: (a) the batch over "data" and Qwen's
+# 20 kv heads over "model", prompt 4 then 4 greedy tokens (generate's
+# 7 steps into an 8-position cache), plus make_prefill on the prompt; (b)
+# one row, so the sequence goes over "data" (heads over "model"), its
+# cache seeded with 4,094 of 4,096 positions: the second step writes the
+# last position, and the two segments' softmax partials are merged across
+# ranks; (c) Granite-34B's one kv head does not divide "model", so its
+# sequence is split there, a cache seeded with 1,022 of 1,024 positions
+SERVE_MESH = {
+    "serve_mesh_qwen_batch": dict(arch="qwen1.5-4b", layers=2, shape=(2, 2),
+                                  batch=4, seq=8, start=0, prompt=4,
+                                  steps=7, seed=0),
+    "serve_mesh_qwen_long": dict(arch="qwen1.5-4b", layers=2, shape=(2, 2),
+                                 batch=1, seq=4096, start=4094, prompt=1,
+                                 steps=2, seed=0),
+    "serve_mesh_granite": dict(arch="granite-34b", layers=1, shape=(1, 2),
+                               batch=2, seq=1024, start=1022, prompt=1,
+                               steps=2, seed=1),
+}
+SERVE_MESH_LOCAL_STEPS = 3       # (d): the (1, 1) mesh against mesh=None
+# (e): kernel 4's lse mode at each point's per-rank shapes: (B, H, Hkv, D,
+# S_loc, lengths to check, lengths timed)
+LSE_SHAPES = {
+    "serve_mesh_qwen_batch": (2, 10, 10, 128, 8, [[0, 1], [5, 8], [7, 3]],
+                              [8, 8]),
+    "serve_mesh_qwen_long": (1, 10, 10, 128, 2048, [[0], [1], [1000],
+                                                    [2047], [2048]], [2048]),
+    "serve_mesh_granite": (2, 48, 1, 128, 512, [[0, 7], [511, 512]],
+                           [512, 512]),
+}
+LSE_TOL = 1e-5                   # |lse − plain lse|, both f32
+
+
+def _serve_rows(torch, b: int, mesh) -> slice:
+    """This rank's rows: its block over the data axes when they divide the
+    batch, else every row (all rows without a mesh)."""
+    if mesh is None:
+        return slice(0, b)
+    axes = tuple(a for a in mesh.axis_names if a != "model")
+    n = mesh.size_over(axes)
+    if b % n:
+        return slice(0, b)
+    r = b // n
+    i = mesh.index_over(axes)
+    return slice(i * r, (i + 1) * r)
+
+
+def _serve_mesh_steps(torch, pt, cfg, params, mesh, tokens, dev,
+                      steps=None) -> dict:
+    """One point through the port's serve entry points: a cache seeded
+    from ``pt["seed"]`` at its first ``start`` positions (this rank's
+    shards of it under ``mesh``, `launch.specs.shard_cache`), ``steps``
+    of ``make_serve_step`` fed ``tokens`` [steps, B, 1] (None: the prompt,
+    then the greedy token of the step before), and ``make_prefill`` on a
+    prompt of more than one token; the decode kernel's launches counted
+    over the steps, the host clock per step (ending at a sync), the
+    written positions of the gathered cache and whether the seeded ones
+    kept their bits."""
+    from repro_torch.fl import distributed as D
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import specs as SP
+    from repro_torch.models import model as M
+    b, s, start = pt["batch"], pt["seq"], pt["start"]
+    steps = steps or pt["steps"]
+    gen = torch.Generator(device=dev).manual_seed(pt["seed"] + 100)
+    prompt = torch.randint(0, cfg.vocab, (b, pt["prompt"]), generator=gen,
+                           device=dev, dtype=torch.int32)
+    whole = M.init_cache(cfg, b, s, dev)
+    for leaf in D.tree_leaves(whole):
+        leaf[:, :, :start].copy_(torch.randn(leaf[:, :, :start].shape,
+                                             generator=gen, device=dev))
+    seeded = D.tree_map(lambda a: a[:, :, :start].clone(), whole)
+    rows = _serve_rows(torch, b, mesh)
+    cache = whole if mesh is None else SP.shard_cache(whole, cfg, mesh, b, s)
+    del whole
+    cache_bytes = sum(x.numel() * x.element_size()
+                      for x in D.tree_leaves(cache))
+    step = D.make_serve_step(cfg, mesh, dev)
+    length = torch.full((b,), start, dtype=torch.int32, device=dev)[rows]
+    tok = prompt[:, :1] if tokens is None else tokens[0]
+    logits, fed, walls = [], [], []
+    _sync(torch, dev)
+    FA.decode_attention.launches = 0
+    with torch.no_grad():
+        for i in range(steps):
+            t0 = time.perf_counter()
+            lg, cache = step(params, cache, tok[rows], length)
+            _sync(torch, dev)
+            walls.append(time.perf_counter() - t0)
+            logits.append(lg.float().cpu())
+            fed.append(tok.cpu())
+            length = length + 1
+            if tokens is not None:
+                tok = tokens[min(i + 1, steps - 1)]
+            elif i + 1 < pt["prompt"]:
+                tok = prompt[:, i + 1:i + 2]
+            else:
+                tok = torch.argmax(lg, dim=-1)[:, None].to(torch.int32)
+        launches = FA.decode_attention.launches
+        prefill = None
+        if pt["prompt"] > 1:
+            prefill = D.make_prefill(cfg, mesh, dev)(
+                params, {"tokens": prompt[rows]}).float().cpu()
+        whole = cache if mesh is None else SP.gather_cache(cache, mesh)
+    untouched = all(torch.equal(a[:, :, :start], w) for a, w in zip(
+        D.tree_leaves(whole), D.tree_leaves(seeded)))
+    written = [a[:, :, start:start + steps].float().cpu()
+               for a in D.tree_leaves(whole)]
+    return {"logits": torch.stack(logits), "tokens": torch.stack(fed),
+            "walls_s": walls, "launches": launches, "prefill": prefill,
+            "written": written, "seeded_untouched": untouched,
+            "cache_bytes": cache_bytes, "rows": (rows.start, rows.stop)}
+
+
+def _sync(torch, dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _serve_mesh_rank(rank, world, store, out_dir, points, feed_path, dev):
+    """One rank of a phase-12 world of gloo ranks sharing ``dev`` (cuda:0):
+    every point of ``points`` (name: point with its "cfg") on its mesh,
+    this rank holding only its shards of the parameters (`param_specs`)
+    and of the cache (`cache_specs`), fed the meshless run's tokens
+    (``feed_path``). The plain twin of the decode kernel is counted: the
+    mesh path must never take it. Results go to out_dir/rank<r>.pt; the
+    ranks meet at a barrier before they take the group down."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.fl import distributed as D
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import model as M
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    MESH.init_distributed(f"file://{store}", world, rank, backend="gloo",
+                          timeout_s=SERVE_MESH_TIMEOUT_S / 2)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plain = {"calls": 0}
+    twin = FA.decode_attention_plain
+
+    def counted(*args, **kw):
+        plain["calls"] += 1
+        return twin(*args, **kw)
+
+    FA.decode_attention_plain = counted
+    feed = torch.load(feed_path)
+    meshes, out = {}, {}
+    for name, pt in points.items():
+        if pt["shape"] not in meshes:
+            meshes[pt["shape"]] = MESH.make_mesh(pt["shape"],
+                                                 SERVE_MESH_NAMES, dev)
+        mesh = meshes[pt["shape"]]
+        cfg = pt["cfg"]
+        if mesh.device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        params = M.init_params(cfg, torch.Generator(
+            device=mesh.device).manual_seed(pt["seed"]), mesh.device)
+        params = SH.shard_tree(params, M.param_specs(cfg, mesh), mesh)
+        res = _serve_mesh_steps(torch, pt, cfg, params, mesh,
+                                feed[name].to(mesh.device), mesh.device)
+        res.update(coords=mesh.coords, plain_calls=plain["calls"],
+                   local_params=sum(x.numel() for x in D.tree_leaves(params)))
+        if mesh.device.type == "cuda":
+            res["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        if mesh.rank != 0:
+            res["written"] = None       # rank 0's gathered cache suffices
+        out[name] = res
+        del params
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+
+def _sdpa_lse(torch, qt, kt, vt, bias):
+    """torch's memory-efficient SDPA on [B, Hkv, G, D] queries (each kv
+    head's G query heads folded into the query length) against [B, Hkv,
+    S, D] keys and values, with an additive length bias [B, Hkv, G, S],
+    asked for its log-sum-exp [B, Hkv, ≥ G]: one PyTorch call that
+    returns what the lse mode returns."""
+    return torch.ops.aten._scaled_dot_product_efficient_attention(
+        qt, kt, vt, bias, True)
+
+
+def _lse_mode(torch, timer) -> dict:
+    """Phase 4b, phase 12's (e): kernel 4's lse mode against its plain twin
+    at phase 12's per-rank shapes (LSE_SHAPES), f32 and bf16, run beside
+    phase 4 (the profiler windows of the kernels' own time belong before
+    the multi-process phases): the output within
+    DECODE_TOL, the lse within LSE_TOL (−inf exactly where the plain
+    version has it: a row of length 0), the output bit-equal to the call
+    without lse; at bf16 also the f32 output the mesh's partials take,
+    within f32's DECODE_TOL of the plain version's and rounding to the
+    bf16 output bit for bit. Then at bf16 and the timed lengths: ms of the
+    mesh's call (lse, f32 output) and of the call without lse, own time
+    (one CUDA kernel), the plain twin's ms and SDPA's (`_sdpa_lse`, its
+    lse checked against the kernel's), beside the bound (bf16 operations
+    at the tensor cores' rate)."""
+    from repro_torch.kernels import flash_attention as FA
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for name, (b, h, hkv, d, s, sweeps, timed) in LSE_SHAPES.items():
+        res, err32 = {}, 0.0
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            q = torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
+            k = torch.randn((b, s, hkv, d), generator=gen,
+                            device=dev).to(dtype)
+            v = torch.randn((b, s, hkv, d), generator=gen,
+                            device=dev).to(dtype)
+            tol = DECODE_TOL[dt]
+            err = lerr = 0.0
+            for lv in sweeps:
+                length = torch.tensor(lv, dtype=torch.int32, device=dev)
+                lse = torch.empty((b, h), dtype=torch.float32, device=dev)
+                plse = torch.empty_like(lse)
+                got = FA.decode_attention(q, k, v, length, lse)
+                want = FA.decode_attention_plain(q, k, v, length, plse)
+                bare = FA.decode_attention(q, k, v, length)
+                torch.cuda.synchronize()
+                check(torch.equal(got, bare), f"lse {name} {dt} {lv}: the "
+                      "output differs from the call without lse")
+                diff = (got.float() - want.float()).abs()
+                check(bool((diff <= tol + tol * want.float().abs()).all()),
+                      f"lse {name} {dt} {lv}: output outside {tol} (max "
+                      f"{float(diff.max()):.3g})")
+                inf = torch.isinf(plse)
+                check(torch.equal(inf, torch.isinf(lse)) and torch.equal(
+                    lse[inf], plse[inf]), f"lse {name} {dt} {lv}: -inf "
+                    "rows differ")
+                ld = (lse[~inf] - plse[~inf]).abs()
+                ld = float(ld.max()) if ld.numel() else 0.0
+                check(ld <= LSE_TOL, f"lse {name} {dt} {lv}: lse {ld:.3g} "
+                      f"from the plain version's (tolerance {LSE_TOL})")
+                err, lerr = max(err, float(diff.max())), max(lerr, ld)
+                if dt == "bfloat16":
+                    lse32 = torch.empty_like(lse)
+                    got32 = FA.decode_attention(q, k, v, length, lse32,
+                                                torch.float32)
+                    want32 = FA.decode_attention_plain(q, k, v, length, None,
+                                                       torch.float32)
+                    check(torch.equal(got32.to(dtype), bare) and torch.equal(
+                        lse32, lse), f"lse {name} {lv}: the f32 output "
+                        "does not round to the bf16 one, or its lse differs")
+                    t32 = DECODE_TOL["float32"]
+                    d32 = (got32 - want32).abs()
+                    check(bool((d32 <= t32 + t32 * want32.abs()).all()),
+                          f"lse {name} {lv}: f32 output outside {t32} (max "
+                          f"{float(d32.max()):.3g})")
+                    err32 = max(err32, float(d32.max()))
+            res[dt] = {"max_abs_err": err, "lse_max_abs_err": lerr}
+        res["bfloat16"]["f32_out_max_abs_err"] = err32
+        # timed at bf16 (the phase's dtype), the timed lengths
+        length = torch.tensor(timed, dtype=torch.int32, device=dev)
+        lse = torch.empty((b, h), dtype=torch.float32, device=dev)
+        plse = torch.empty_like(lse)
+        f32 = torch.float32
+
+        def call():
+            return FA.decode_attention(q, k, v, length, lse, f32)
+        res["ms"] = timer.ms(call)
+        res["ms_without_lse"] = timer.ms(
+            lambda: FA.decode_attention(q, k, v, length))
+        own = _kernel_only(torch, timer.flush, call)
+        _one_kernel(f"decode_attention lse {name}", own)
+        res["kernel_only_ms"] = own["kernel_only_ms"]
+        res["plain_ms"] = timer.ms(
+            lambda: FA.decode_attention_plain(q, k, v, length, plse, f32))
+        g = h // hkv
+        qt = q.view(b, hkv, g, d)
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+        pos = torch.arange(s, device=dev)[None, None, None, :]
+        bias = torch.zeros((b, hkv, g, s), dtype=q.dtype, device=dev)
+        bias.masked_fill_(pos >= length[:, None, None, None], float("-inf"))
+        call()
+        res["library_ms"] = res["library_kernel_only_ms"] = None
+        try:
+            lib_lse = _sdpa_lse(torch, qt, kt, vt, bias)[1][:, :, :g]
+            res["library_lse_max_abs_err"] = float(
+                (lib_lse.reshape(b, h) - lse).abs().max())
+            res["library_ms"] = timer.ms(
+                lambda: _sdpa_lse(torch, qt, kt, vt, bias))
+            res["library_kernel_only_ms"] = _kernel_only(
+                torch, timer.flush,
+                lambda: _sdpa_lse(torch, qt, kt, vt, bias))["kernel_only_ms"]
+        except RuntimeError as e:         # a yardstick only
+            res["library_note"] = f"SDPA with lse refused: {e}"[:200]
+        es = q.element_size()
+        valid = sum(min(x, s) for x in timed)
+        # q read, the f32 output and lse written, the valid K/V rows read
+        bytes_moved = (b * h * d * es + b * h * d * 4 + 2 * valid * hkv * d
+                       * es + 4 * b + 4 * b * h)
+        res["bound_ms"], res["bound_by"] = _bound(
+            bytes_moved, 4.0 * valid * h * d, BF16_FLOPS)
+        res["shape"] = (f"q[{b},{h},{d}] kv[{b},{s},{hkv},{d}] bfloat16 "
+                        f"lengths {timed}")
+        res["plan"] = FA.plan(b, h, hkv, d, s, es, _sm_count(torch))._asdict()
+        out[name] = res
+        print(f"kernel decode_attention lse {name}: " + json.dumps(res))
+    return out
+
+
+def _serve_mesh_gates(torch, name, pt, base, ranks, smi) -> dict:
+    """(a)–(c), (f): every rank's logits of its rows within SERVE_REL_L2 of
+    the meshless run at every step and its greedy tokens on at least
+    SERVE_ARGMAX_AGREE of them (the prefill too); ranks of one data block
+    bit-identical; the decode kernel launched once per attention layer
+    and step on every rank and the plain twin never; the seeded positions
+    of the gathered cache untouched and the written ones within
+    SERVE_REL_L2 of the meshless cache's."""
+    layers, steps = pt["cfg"].n_layers, pt["steps"]
+    rels, agree, same = [], [], {}
+    for r, res in enumerate(ranks):
+        what = f"{name} rank {r} {res['coords']}"
+        check(res["launches"] == layers * steps, f"{what}: "
+              f"{res['launches']} decode kernel launches, want "
+              f"{layers * steps}")
+        check(res["plain_calls"] == 0, f"{what}: the plain twin ran "
+              f"{res['plain_calls']} times")
+        check(res["seeded_untouched"], f"{what}: a seeded cache position "
+              "changed")
+        lo, hi = res["rows"]
+        want = base["logits"][:, lo:hi]
+        check(torch.equal(res["tokens"], base["tokens"]),
+              f"{what}: fed other tokens")
+        for i in range(steps):
+            rel = _rel_l2(torch, res["logits"][i], want[i])
+            check(rel <= SERVE_REL_L2, f"{what}: step {i} logits {rel} "
+                  "from the meshless run's")
+            rels.append(rel)
+        a = float((torch.argmax(res["logits"], -1)
+                   == torch.argmax(want, -1)).float().mean())
+        check(a >= SERVE_ARGMAX_AGREE, f"{what}: greedy tokens agree on "
+              f"{a} of the steps")
+        agree.append(a)
+        if base["prefill"] is not None:
+            rel = _rel_l2(torch, res["prefill"], base["prefill"][lo:hi])
+            check(rel <= SERVE_REL_L2, f"{what}: prefill {rel}")
+            rels.append(rel)
+        key = res["coords"][0]
+        if key in same:
+            check(torch.equal(res["logits"], same[key]), f"{what}: logits "
+                  "differ from another rank of its data block")
+        same.setdefault(key, res["logits"])
+    cache_rel = max(_rel_l2(torch, a, w) for a, w in zip(
+        ranks[0]["written"], base["written"]))
+    check(cache_rel <= SERVE_REL_L2, f"{name}: written cache positions "
+          f"{cache_rel} from the meshless run's")
+    walls = [max(res["walls_s"][i] for res in ranks) for i in range(steps)]
+    whole = base["cache_bytes"]
+    return {"card": smi, "arch": pt["arch"], "n_layers": layers,
+            "mesh": dict(zip(SERVE_MESH_NAMES, pt["shape"])),
+            "batch": pt["batch"], "cache_positions": pt["seq"],
+            "seeded_positions": pt["start"], "steps": steps,
+            "max_logits_rel_l2": max(rels), "greedy_agree_min": min(agree),
+            "written_cache_rel_l2": cache_rel,
+            "launches_per_rank": [res["launches"] for res in ranks],
+            "step_walls_s_slowest_rank": walls,
+            "ms_per_step": walls[-1] * 1e3,
+            "tokens_per_s": pt["batch"] / walls[-1],
+            "meshless_ms_per_step": base["walls_s"][-1] * 1e3,
+            "peak_gb_per_rank": [res.get("peak_gb") for res in ranks],
+            "cache_bytes_per_rank": [res["cache_bytes"] for res in ranks],
+            "cache_bytes_whole": whole,
+            "local_params_per_rank": [res["local_params"] for res in ranks]}
+
+
+def phase_serve_mesh(torch, smi) -> dict:
+    """Phase 12: serving and prefill under a ("data", "model") mesh of
+    gloo ranks sharing cuda:0 (`mesh.spawn` of `_serve_mesh_rank`; results
+    through build/serve_mesh/, deleted after; (e), kernel 4's lse mode at
+    the points' per-rank shapes, is phase 4b, `_lse_mode`). The meshless
+    runs of SERVE_MESH's points
+    on the card (greedy tokens, which the ranks are then fed); (d) the
+    (1, 1) local mesh bit-identical to mesh=None; then (a), (b) on 4
+    ranks and (c) on 2, gated by `_serve_mesh_gates`."""
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.models import model as M
+    dev = torch.device("cuda")
+    out = {}
+    points = {n: dict(pt, cfg=_family_cfg(pt["arch"], pt["layers"]))
+              for n, pt in SERVE_MESH.items()}
+    base, params = {}, {}
+    for name, pt in points.items():
+        key = (pt["arch"], pt["layers"], pt["seed"])
+        if key not in params:
+            params.clear()
+            torch.cuda.empty_cache()
+            params[key] = M.init_params(pt["cfg"], torch.Generator(
+                device=dev).manual_seed(pt["seed"]), dev)
+        base[name] = _serve_mesh_steps(torch, pt, pt["cfg"], params[key],
+                                       None, None, dev)
+        if name == "serve_mesh_qwen_batch":
+            # (d) the (1, 1) local mesh, bit for bit
+            feed = base[name]["tokens"][:SERVE_MESH_LOCAL_STEPS].to(dev)
+            runs = [_serve_mesh_steps(torch, pt, pt["cfg"], params[key], m,
+                                      feed, dev, SERVE_MESH_LOCAL_STEPS)
+                    for m in (None, MESH.make_local_mesh("cuda"))]
+            check(torch.equal(runs[0]["logits"], runs[1]["logits"])
+                  and torch.equal(runs[0]["prefill"], runs[1]["prefill"])
+                  and all(torch.equal(a, b) for a, b in zip(
+                      runs[0]["written"], runs[1]["written"])),
+                  "serve mesh (d): the (1, 1) local mesh is not "
+                  "bit-identical to mesh=None")
+            out["local_mesh_bit_identical"] = True
+    params.clear()
+    torch.cuda.empty_cache()
+    work = os.path.join(ROOT, "build", "serve_mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    feed_path = os.path.join(work, "feed.pt")
+    torch.save({n: b["tokens"] for n, b in base.items()}, feed_path)
+    ranks = {}
+    try:
+        for world in sorted({math.prod(pt["shape"])
+                             for pt in points.values()}, reverse=True):
+            mine = {n: pt for n, pt in points.items()
+                    if math.prod(pt["shape"]) == world}
+            t0 = time.perf_counter()
+            MESH.spawn(_serve_mesh_rank, world,
+                       (world, os.path.join(work, f"pg{world}"), work, mine,
+                        feed_path, "cuda"), timeout_s=SERVE_MESH_TIMEOUT_S)
+            got = [torch.load(os.path.join(work, f"rank{r}.pt"))
+                   for r in range(world)]
+            for n in mine:
+                ranks[n] = [g[n] for g in got]
+            out[f"world{world}_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for name, pt in points.items():
+        out[name] = _serve_mesh_gates(torch, name, pt, base[name],
+                                      ranks[name], smi)
+        print(f"{name}: " + json.dumps(out[name]))
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3634,7 +4121,9 @@ def main() -> int:
     _scratch_zeroed(torch, build, "the kernels phase at n = 699,066")
     dres = timed("decode_kernel", phase_decode, torch,
                  _Timer(torch, flush, windows=11))
-    _scratch_zeroed(torch, build, "the decode kernel phase")
+    lse_res = timed("decode_lse", _lse_mode, torch,
+                    _Timer(torch, flush, windows=11))
+    _scratch_zeroed(torch, build, "the decode kernel phases")
     tb_sizes, tbres = timed("track_b_kernels", phase_track_b_kernels, torch,
                             K, _Timer(torch, flush, **TRACK_B_TIMER))
     _scratch_zeroed(torch, build, "the kernels at the Track-B leaf widths")
@@ -3674,6 +4163,7 @@ def main() -> int:
     train_fam = timed("train_families", phase_train_families, torch, K,
                       tb_sizes)
     pod = timed("pod_mesh", phase_pod_mesh, torch, tb_sizes)
+    serve_mesh = timed("serve_mesh", phase_serve_mesh, torch, smi)
     _scratch_zeroed(torch, build, "the round, schemes, store, serve and "
                     "train paths")
 
@@ -3747,6 +4237,16 @@ def main() -> int:
         "shape": r["shape"],
         "launches_serve_families": {k: v["launches"]["decode_attention"]
                                     for k, v in serve_fam.items()},
+        "launches_serve_mesh_per_rank": {
+            k: serve_mesh[k]["launches_per_rank"] for k in SERVE_MESH},
+        "lse_mode_shapes": {k: {x: v[x] for x in (
+            "shape", "ms", "ms_without_lse", "kernel_only_ms", "plain_ms",
+            "library_ms", "library_kernel_only_ms", "bound_ms", "bound_by")}
+            | {"max_abs_err": max(v[dt]["max_abs_err"]
+                                  for dt in ("float32", "bfloat16")),
+               "lse_max_abs_err": max(v[dt]["lse_max_abs_err"]
+                                      for dt in ("float32", "bfloat16"))}
+            for k, v in lse_res.items()},
         "family_shapes": {k: {x: dres[k][x] for x in (
             "shape", "ms", "kernel_only_ms", "plain_ms", "library_ms",
             "library_kernel_only_ms", "bound_ms", "max_abs_err")}
@@ -3762,7 +4262,7 @@ def main() -> int:
                                         for k, v in wres.items()},
                    "kernels_cnn_cifar": {f"{k[0]}[rows={k[1]}]": v
                                          for k, v in cres.items()},
-                   "decode_all_shapes": dres,
+                   "decode_all_shapes": dres, "decode_lse_mode": lse_res,
                    "parity": parity, "modes_parity": modes_parity,
                    "main": main_out, "profile": prof, "sharded": sharded,
                    "modes_path": modes_path, "wire_path": wire,
@@ -3774,6 +4274,7 @@ def main() -> int:
                    "train_path": train_out, "train_example": example,
                    "serve_families": serve_fam,
                    "train_families": train_fam, "pod_mesh": pod,
+                   "serve_mesh": serve_mesh,
                    "phase_s": phase_s, "kernels": kernels},
                   f, indent=1)
     print(f"card: {smi}")

@@ -37,7 +37,10 @@ temporaries before the next, so a 4B-parameter bf16 model's step holds a
 few whole-model trees at a time, not the reference's whole-tree
 intermediates.
 
-Serving under a mesh is not ported (ROADMAP item 13c).
+Serving (`make_serve_step`, `make_prefill`) runs without a mesh or under
+one: each rank then holds its parameter shards, its shards of the cache as
+``launch.specs.cache_specs`` lays them out (`launch.specs.shard_cache`) and
+its rows (`models.model.decode_step`'s per-rank contract).
 """
 from __future__ import annotations
 
@@ -413,15 +416,6 @@ def _cohort_round(params, prev, ef, batch, theta_d, theta_u,
     return sparse, new_prev, new_ef, torch.mean(losses)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        M.check_mesh(mesh)
-        raise NotImplementedError(
-            "serving under a mesh (caches sharded by launch.specs."
-            "cache_specs) is not ported to repro_torch yet (ROADMAP item "
-            "13c); pass mesh=None")
-
-
 def _pod_mean(x, n_pods: int, fold) -> torch.Tensor:
     """``fold(x)`` (the pods' Σ) / n_pods in its dtype, the reference's
     ``pmean``: a true division by a tensor on its device."""
@@ -558,17 +552,24 @@ def make_pods_step(cfg: ModelConfig, dcfg: DistConfig, n_pods: int,
 # ---------------------------------------------------------------------------
 
 def make_serve_step(cfg: ModelConfig, mesh=None, device="cuda"):
-    _no_mesh(mesh)
+    """``serve_step(params, cache, tokens, length) -> (logits, cache)``:
+    `models.model.decode_step` under ``mesh`` (its per-rank contract: this
+    rank's parameter shards, its `ShardedCache`, its rows)."""
+    if mesh is not None:
+        M.check_mesh(mesh)
 
     def serve_step(params, cache, tokens, length):
         return M.decode_step(params, cache, {"tokens": tokens}, length, cfg,
-                             device)
+                             device, mesh)
     return serve_step
 
 
 def make_prefill(cfg: ModelConfig, mesh=None, device="cuda"):
-    _no_mesh(mesh)
+    """``prefill_step(params, batch) -> last-position logits``:
+    `models.model.prefill` under ``mesh`` (this rank's shards and rows)."""
+    if mesh is not None:
+        M.check_mesh(mesh)
 
     def prefill_step(params, batch):
-        return M.prefill(params, batch, cfg, device)
+        return M.prefill(params, batch, cfg, device, mesh)
     return prefill_step

@@ -14,7 +14,8 @@
 // base 2 (q scaled once by log2(e)/sqrt(D), exp2f), which moves a logit by
 // an ulp or so against the plain version's divide and exp: inside its 3e-5
 // f32 tolerance. q [B,H,D],
-// k/v [B,S,Hkv,D], out [B,H,D]: all f32 or all bf16; length [B] int32.
+// k/v [B,S,Hkv,D], out [B,H,D]: all f32 or all bf16 (or bf16 inputs and
+// an f32 out); length [B] int32.
 //
 // Bound on the card: memory bytes. Each valid cache position is read once
 // (K and V rows of D elements per kv head) and used for at most G = H/Hkv
@@ -63,6 +64,16 @@
 //   float atomics: the same input gives the same bits.
 // * No tensor cores: one query row per head gives them nothing to do at
 //   G = 1 (a lever for G >= 8 only).
+// * Partials across ranks. A cache whose positions are split over ranks
+//   needs each rank's softmax state to merge with the others': given an lse
+//   pointer, the block that writes a row's output (the unsplit block or the
+//   merging one) also writes its log-sum-exp, (m + log2 l) * ln 2 of the
+//   base-2 state it already holds, -inf for an empty row. The output's
+//   arithmetic is the same with or without it, in the same one launch.
+//   A bf16 launch may write its output in f32 (dtype 2, a flag uniform
+//   over the launch, not another instantiation): the partial keeps its f32
+//   value until the ranks' merge rounds once, as the in-launch merge of
+//   splits does; rounded to bf16 it is the bf16 launch's output.
 // * bf16 is converted with __bfloat1622float2 / __float2bfloat16 (round to
 //   nearest even, as PyTorch's cast).
 #include <cuda_runtime.h>
@@ -135,6 +146,16 @@ __device__ __forceinline__ void store_out(float x, float* p) { *p = x; }
 __device__ __forceinline__ void store_out(float x, __nv_bfloat16* p) {
   *p = __float2bfloat16(x);
 }
+// element i of the output: in T, or in f32 where out_f32 is set (bf16
+// inputs whose partial stays f32; uniform over the launch)
+template <typename T>
+__device__ __forceinline__ void store_row(float x, void* out, int out_f32,
+                                          size_t i, const T*) {
+  if (out_f32)
+    static_cast<float*>(out)[i] = x;
+  else
+    store_out(x, static_cast<T*>(out) + i);
+}
 
 // the lane's chunks of a row at p (global or shared, 16-byte aligned)
 template <typename T, int D>
@@ -162,15 +183,22 @@ __device__ __forceinline__ void merge_scale(float m, float mo, float& c,
   co = mo == -INFINITY ? 0.0f : exp2f(mo - mx);
 }
 
+// the natural log-sum-exp of a row's logits from its base-2 running max
+// and normaliser; -inf for a row with no valid position
+__device__ __forceinline__ float lse_of(float mx, float lsum) {
+  return mx == -INFINITY ? -INFINITY
+                         : (mx + log2f(lsum)) * 0.6931471805599453f;
+}
+
 // grid (Hkv * n_gblk, n_split, B), NT threads, Plan::RING (or the merge
 // area, if larger) bytes of dynamic shared memory.
 template <typename T, int D, int GT>
 __global__ void __launch_bounds__(NT)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ length,
-              T* __restrict__ out, float* __restrict__ part,
-              int* __restrict__ ticket, int H, int Hkv, int S, int chunk,
-              int n_gblk) {
+              void* __restrict__ out, int out_f32, float* __restrict__ lse,
+              float* __restrict__ part, int* __restrict__ ticket, int H,
+              int Hkv, int S, int chunk, int n_gblk) {
   using P = Plan<T, D>;
   constexpr int EPL = P::EPL;
   constexpr int PS = GT * (D + 2);          // floats of one split's partial
@@ -379,8 +407,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     if (n_split == 1) {
-      store_out(asum / fmaxf(lsum, 1e-30f),
-                out + ((size_t)b * H + h0 + g) * D + d);
+      store_row(asum / fmaxf(lsum, 1e-30f), out, out_f32,
+                ((size_t)b * H + h0 + g) * D + d, (const T*)nullptr);
+      if (lse != nullptr && d == 0)
+        lse[(size_t)b * H + h0 + g] = lse_of(mx, lsum);
     } else {
       float* ps = pp + (size_t)split * PS;
       ps[g * D + d] = asum;
@@ -418,15 +448,19 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
     }
-    store_out(asum / fmaxf(lsum, 1e-30f),
-              out + ((size_t)b * H + h0 + g) * D + d);
+    store_row(asum / fmaxf(lsum, 1e-30f), out, out_f32,
+              ((size_t)b * H + h0 + g) * D + d, (const T*)nullptr);
+    if (lse != nullptr && d == 0)
+      lse[(size_t)b * H + h0 + g] = lse_of(mx, lsum);
   }
   if (threadIdx.x == 0) ticket[pair] = 0;
 }
 
 template <typename T, int D, int GT>
 static int launch(const void* q, const void* k, const void* v,
-                  const void* length, void* out, void* part, void* ticket,
+                  const void* length, void* out, int out_f32, void* lse,
+                  void* part,
+                  void* ticket,
                   int B, int H, int Hkv, int S, int chunk, int n_split,
                   int n_gblk, cudaStream_t st) {
   using P = Plan<T, D>;
@@ -445,14 +479,17 @@ static int launch(const void* q, const void* k, const void* v,
   }
   dim3 grid((unsigned)(Hkv * n_gblk), (unsigned)n_split, (unsigned)B);
   kern<<<grid, NT, SMEM, st>>>((const T*)q, (const T*)k, (const T*)v,
-                               (const int*)length, (T*)out, (float*)part,
-                               (int*)ticket, H, Hkv, S, chunk, n_gblk);
+                               (const int*)length, out, out_f32, (float*)lse,
+                               (float*)part, (int*)ticket, H, Hkv, S, chunk,
+                               n_gblk);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 static int by_group(int gt, const void* q, const void* k, const void* v,
-                    const void* length, void* out, void* part, void* ticket,
+                    const void* length, void* out, int out_f32, void* lse,
+                    void* part,
+                    void* ticket,
                     int B, int H, int Hkv, int S, int chunk, int n_split,
                     int n_gblk, cudaStream_t st) {
   // only the groups whose q and acc fit in registers are built (the
@@ -461,8 +498,9 @@ static int by_group(int gt, const void* q, const void* k, const void* v,
 #define CASE(G)                                                            \
   case G:                                                                  \
     if constexpr (G * Plan<T, D>::EPL <= MAX_GROUP_REGS)                   \
-      return launch<T, D, G>(q, k, v, length, out, part, ticket, B, H,     \
-                             Hkv, S, chunk, n_split, n_gblk, st);          \
+      return launch<T, D, G>(q, k, v, length, out, out_f32, lse, part,     \
+                             ticket, B, H, Hkv, S, chunk, n_split, n_gblk, \
+                             st);                                          \
     break;
     CASE(1) CASE(2) CASE(4) CASE(8)
 #undef CASE
@@ -472,14 +510,16 @@ static int by_group(int gt, const void* q, const void* k, const void* v,
 
 template <typename T>
 static int by_dim(int D, int gt, const void* q, const void* k, const void* v,
-                  const void* length, void* out, void* part, void* ticket,
+                  const void* length, void* out, int out_f32, void* lse,
+                  void* part,
+                  void* ticket,
                   int B, int H, int Hkv, int S, int chunk, int n_split,
                   int n_gblk, cudaStream_t st) {
   switch (D) {
 #define CASE(DD)                                                          \
   case DD:                                                                \
-    return by_group<T, DD>(gt, q, k, v, length, out, part, ticket, B, H,  \
-                           Hkv, S, chunk, n_split, n_gblk, st);
+    return by_group<T, DD>(gt, q, k, v, length, out, out_f32, lse, part,  \
+                           ticket, B, H, Hkv, S, chunk, n_split, n_gblk, st);
     CASE(32) CASE(64) CASE(96) CASE(128) CASE(160) CASE(192) CASE(224)
     CASE(256)
 #undef CASE
@@ -488,8 +528,10 @@ static int by_dim(int D, int gt, const void* q, const void* k, const void* v,
   }
 }
 
-// q, out [B,H,D]; k, v [B,S,Hkv,D]; length [B] int32; dtype 0 = f32,
-// 1 = bf16. D is a multiple of 32 up to 256 and H a multiple of Hkv. Each
+// q, out [B,H,D]; k, v [B,S,Hkv,D]; length [B] int32; lse [B,H] f32 or
+// null (when given, each row's log-sum-exp of its scaled logits, -inf for
+// a row of length 0; the output is the same either way); dtype 0 = f32,
+// 1 = bf16, 2 = bf16 inputs and an f32 output. D is a multiple of 32 up to 256 and H a multiple of Hkv. Each
 // kv head's G = H/Hkv query heads are served n_gblk blocks of gt heads
 // (gt in 1, 2, 4, 8; gt * n_gblk >= G > gt * (n_gblk - 1)). Positions
 // [i*chunk, (i+1)*chunk) go to split i. With n_split > 1, part holds
@@ -497,10 +539,11 @@ static int by_dim(int D, int gt, const void* q, const void* k, const void* v,
 // int32 counters that are zero on entry (and left zero). Returns
 // cudaGetLastError() after the launch.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
-                                const void* length, void* out, void* part,
-                                void* ticket, int B, int H, int Hkv, int S,
-                                int D, int gt, int n_gblk, int chunk,
-                                int n_split, int dtype, void* stream) {
+                                const void* length, void* out, void* lse,
+                                void* part, void* ticket, int B, int H,
+                                int Hkv, int S, int D, int gt, int n_gblk,
+                                int chunk, int n_split, int dtype,
+                                void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || S <= 0 || H % Hkv != 0 ||
       chunk <= 0 || n_split <= 0 || n_split > 65535 || B > 65535 ||
       n_gblk <= 0 || (long long)chunk * n_split < S ||
@@ -509,10 +552,11 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return by_dim<float>(D, gt, q, k, v, length, out, part, ticket, B, H,
-                         Hkv, S, chunk, n_split, n_gblk, st);
-  if (dtype == 1)
-    return by_dim<__nv_bfloat16>(D, gt, q, k, v, length, out, part, ticket,
-                                 B, H, Hkv, S, chunk, n_split, n_gblk, st);
+    return by_dim<float>(D, gt, q, k, v, length, out, 0, lse, part, ticket,
+                         B, H, Hkv, S, chunk, n_split, n_gblk, st);
+  if (dtype == 1 || dtype == 2)
+    return by_dim<__nv_bfloat16>(D, gt, q, k, v, length, out, dtype == 2,
+                                 lse, part, ticket, B, H, Hkv, S, chunk,
+                                 n_split, n_gblk, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,10 +5,17 @@ Replaces ``repro.kernels.flash_attention.decode_attention`` (the TPU
 ``_decode_kernel``). q is ``[B, H, D]``, the cache k/v ``[B, S, Hkv, D]``
 (all f32 or all bf16) and ``length`` ``[B]`` int32 the valid cache length;
 the output is ``[B, H, D]`` in q's dtype. Query head h reads kv head
-``h // (H / Hkv)``. CUDA tensors launch ``csrc/decode_attention.cu``; CPU
+``h // (H / Hkv)``. Given ``lse``, an f32 ``[B, H]`` tensor, the same
+launch also writes each row's log-sum-exp of its scaled logits there (−inf
+for a row of length 0), and the output is bit-equal to the call without
+it. ``out_dtype=torch.float32`` on bf16 inputs writes that output in f32
+(its bf16 rounding is the bf16 output, bit for bit). Both serve the
+softmax partial of a cache whose positions are split over ranks, which
+`merge_partials` combines in f32. CUDA tensors launch
+``csrc/decode_attention.cu``; CPU
 tensors take the plain version (`decode_attention_plain`), with no fallback
-between them. Lengths are expected in 1..S: the kernel clamps them to
-[0, S], and a row of length 0 comes out as zeros.
+between them. Lengths run 0..S (the kernel clamps others to [0, S]); a
+row of length 0 comes out as zeros.
 
 A long cache is split across blocks so that every SM has work, in one
 launch: each split writes its partial softmax state to scratch and the
@@ -32,6 +39,7 @@ decode_attention_plain = ref.decode_attention
 _C = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+F32_OUT = 2                    # the C code of bf16 inputs with an f32 output
 # the split plan: aim at BLOCKS_PER_SM blocks per SM, splits of a multiple
 # of MIN_CHUNK positions, at most MAX_SPLIT splits (the merging block reads
 # every split's partial). Three blocks fit on an SM, so 2 keeps the whole
@@ -65,8 +73,8 @@ class Plan(NamedTuple):
 def _lib():
     fn = build.load("decode_attention").decode_attention
     if fn.argtypes is None:
-        fn.argtypes = [_C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _I, _I, _C]
+        fn.argtypes = [_C, _C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _C]
         fn.restype = ctypes.c_int
     return fn
 
@@ -102,7 +110,7 @@ def plan(b: int, h: int, hkv: int, d: int, s: int, itemsize: int,
     return Plan(gt, n_gblk, chunk, -(-s // chunk))
 
 
-def _check(q, k, v, length) -> None:
+def _check(q, k, v, length, lse=None, out_dtype=None) -> None:
     if q.dim() != 3:
         raise ValueError(f"q must be [B, H, D], got {tuple(q.shape)}")
     b, h, d = q.shape
@@ -122,7 +130,14 @@ def _check(q, k, v, length) -> None:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
-    ts = (q, k, v, length)
+    if out_dtype not in (None, q.dtype, torch.float32):
+        raise TypeError(f"out_dtype must be q's dtype or float32, got "
+                        f"{out_dtype}")
+    ts = (q, k, v, length) + (() if lse is None else (lse,))
+    if lse is not None and (tuple(lse.shape) != (b, h)
+                            or lse.dtype != torch.float32):
+        raise ValueError(f"lse must be float32 [B={b}, H={h}], got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
     if any(t.device != q.device for t in ts):
         raise ValueError("all inputs must be on one device")
     if not all(t.is_contiguous() for t in ts):
@@ -130,11 +145,15 @@ def _check(q, k, v, length) -> None:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     length: torch.Tensor) -> torch.Tensor:
-    """softmax(q·kᵀ/√D over the first length[b] positions)·v per head."""
-    _check(q, k, v, length)
+                     length: torch.Tensor,
+                     lse: torch.Tensor | None = None,
+                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """softmax(q·kᵀ/√D over the first length[b] positions)·v per head, in
+    ``out_dtype`` (q's dtype by default, or f32); with ``lse`` (f32
+    [B, H]) also the rows' log-sum-exp, written there."""
+    _check(q, k, v, length, lse, out_dtype)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, length)
+        return decode_attention_plain(q, k, v, length, lse, out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, h, d = q.shape
@@ -149,7 +168,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn = _lib()
     p = plan(b, h, hkv, d, s, q.element_size(),
              build.sm_count(q.device.index or 0))
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=out_dtype or q.dtype)
+    kind = _DTYPES[q.dtype] if out.dtype == q.dtype else F32_OUT
     part = ticket = None
     stream = build.stream_of(q)
     if p.n_split > 1:
@@ -159,13 +179,35 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                       p.pairs(b, hkv), stream)
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-                  out.data_ptr(), part.data_ptr() if part is not None
+                  out.data_ptr(), None if lse is None else lse.data_ptr(),
+                  part.data_ptr() if part is not None
                   else None, ticket.data_ptr() if ticket is not None
                   else None, b, h, hkv, s, d, p.gt, p.n_gblk, p.chunk,
-                  p.n_split, _DTYPES[q.dtype], stream)
+                  p.n_split, kind, stream)
     build.check_launch(code, "decode_attention")
     decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+
+
+def merge_partials(out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """One softmax from R partials over disjoint position sets: ``out``
+    [R, ..., D] (each normalized over its own positions) and ``lse``
+    [R, ...] (each one's log-sum-exp, −inf where it held no position), in
+    the order of R (the ranks' order along the axes that split the
+    sequence). With m = max_r lse_r and w_r = exp(lse_r − m) (0 for −inf),
+    Σ_r w_r·out_r / Σ_r w_r, folded left in f32 and returned in f32 (the
+    caller rounds it once): a partial with no position weighs exactly 0,
+    and a row no partial holds comes out 0."""
+    m = torch.amax(lse, dim=0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    num = torch.zeros(out.shape[1:], dtype=torch.float32, device=out.device)
+    den = torch.zeros(lse.shape[1:], dtype=torch.float32, device=out.device)
+    for r in range(out.shape[0]):
+        w = torch.where(lse[r] == float("-inf"), 0.0,
+                        torch.exp(lse[r] - m))
+        num = num + w[..., None] * out[r].to(torch.float32)
+        den = den + w
+    return num / torch.clamp(den, min=1e-30)[..., None]

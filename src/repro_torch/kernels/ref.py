@@ -95,12 +95,18 @@ def recover(kept: torch.Tensor, sign: torch.Tensor, local: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     length: torch.Tensor | None = None) -> torch.Tensor:
+                     length: torch.Tensor | None = None,
+                     lse: torch.Tensor | None = None,
+                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Single-token decode attention, as ``repro.kernels.ref.decode_attention``.
 
-    q [B, H, D]; k/v [B, S, Hkv, D]; length [B] valid cache length (1..S).
-    Query head h reads kv head h // (H/Hkv). f32 softmax, output in q's
-    dtype; positions ≥ length are masked with -inf."""
+    q [B, H, D]; k/v [B, S, Hkv, D]; length [B] valid cache length (0..S;
+    a row of length 0 comes out as zeros). Query head h reads kv head
+    h // (H/Hkv). f32 softmax, output in q's dtype; positions ≥ length are
+    masked with -inf. Given ``lse`` (f32 [B, H]), each row's log-sum-exp
+    of its scaled logits is written there (-inf for length 0), as the
+    kernel writes it; ``out_dtype`` (f32 on bf16 inputs) keeps the output
+    in that dtype instead."""
     b, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     group = h // hkv
@@ -118,5 +124,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = torch.where(pos < length[:, None, None, None], logits,
                              float("-inf"))
     p = torch.softmax(logits, dim=-1)
+    if length is not None:      # an empty row's softmax is NaN: weigh it 0
+        p = torch.where(length[:, None, None, None] > 0, p, 0.0)
+    if lse is not None:
+        lse.copy_(torch.logsumexp(logits, dim=-1).reshape(b, h))
     out = torch.einsum("bhgs,bshd->bhgd", p, vf)
-    return out.reshape(b, h, d).to(q.dtype)
+    return out.reshape(b, h, d).to(out_dtype or q.dtype)

@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from repro_torch.launch import sharding as SH
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 
@@ -136,6 +137,34 @@ def cache_specs(cfg: ModelConfig, mesh, batch: int, seq: int):
         return ()
 
     return M._map_with_path(spec_for, cache_struct(cfg, batch, seq))
+
+
+def shard_cache(cache, cfg: ModelConfig, mesh, batch: int, seq: int
+                ) -> M.ShardedCache:
+    """This rank's blocks of a whole cache of ``batch`` rows and ``seq``
+    positions (the tree of ``init_cache(cfg, batch, seq)``), laid out as
+    `cache_specs` says: contiguous copies, which `models.model.
+    decode_step` writes in place."""
+    specs = cache_specs(cfg, mesh, batch, seq)
+    return M.ShardedCache(SH.shard_tree(cache, specs, mesh), specs)
+
+
+def gather_cache(cache: M.ShardedCache, mesh) -> dict:
+    """The whole cache from every rank's `ShardedCache` (all-gathers over
+    each leaf's split axes, in rank order): a plain dict."""
+    return SH.gather_tree(dict(cache), cache.specs, mesh)
+
+
+def init_sharded_cache(cfg: ModelConfig, mesh, batch: int, seq: int,
+                       device="cuda") -> M.ShardedCache:
+    """`shard_cache` of ``init_cache(cfg, batch, seq)`` made directly as
+    zeros of this rank's block shapes (the whole cache is never held)."""
+    dev = M.resolve_device(device)
+    specs = cache_specs(cfg, mesh, batch, seq)
+    local = SH.shard_tree(cache_struct(cfg, batch, seq), specs, mesh)
+    return M.ShardedCache(M._map_with_path(
+        lambda _p, t: torch.zeros(t.shape, dtype=t.dtype, device=dev),
+        local), specs)
 
 
 def decode_inputs(cfg: ModelConfig, mesh, batch: int, seq: int):

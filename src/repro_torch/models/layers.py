@@ -131,6 +131,31 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return out.to(x.dtype)
 
 
+def place_at(cache: torch.Tensor, new: torch.Tensor, length: torch.Tensor,
+             offset: int | None = None) -> torch.Tensor:
+    """Write new [B, 1, ...] at position length[b] of ``cache`` [B, S, ...],
+    IN PLACE, and return ``cache``.
+
+    With ``offset`` None this is one indexed write (for finite inputs the
+    values of the reference's one-hot blend ``cache·(1−oh) + oh·new``, which
+    builds a new cache instead). With an ``offset``, ``cache`` is a rank's
+    segment of positions [offset, offset + S) and the row goes in at
+    length[b] − offset only where that falls inside it; the other rows keep
+    their bits (their row is read and written back)."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    if offset is None:
+        cache[rows, length.long()] = new[:, 0].to(cache.dtype)
+        return cache
+    s_loc = cache.shape[1]
+    pos = length.long() - offset
+    own = (pos >= 0) & (pos < s_loc)
+    idx = pos.clamp(0, s_loc - 1)
+    old = cache[rows, idx]
+    own = own.reshape((-1,) + (1,) * (old.dim() - 1))
+    cache[rows, idx] = torch.where(own, new[:, 0].to(cache.dtype), old)
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # Chunked (flash-style) attention — train/prefill path
 # ---------------------------------------------------------------------------

@@ -137,9 +137,23 @@ def _projections(x, p, cfg):
     return z, xin, b, c, dt
 
 
-def mamba_block(x, p, cfg, state=None, conv_state=None):
+def _block(t: torch.Tensor, dim: int, j: int, n: int) -> torch.Tensor:
+    """Block j of n equal blocks of t along dim."""
+    return t.narrow(dim, j * n, n)
+
+
+def mamba_block(x, p, cfg, state=None, conv_state=None, mesh=None,
+                head_axes=(), chan_axes=()):
     """x [B,L,d] → (y [B,L,d], (ssm_state, conv_state)); a given state means
-    decode (L = 1)."""
+    decode (L = 1).
+
+    Decode under ``mesh``: with live ``chan_axes`` the conv state holds
+    this rank's block of the conv channels, and the conv runs on those
+    channels only, its output gathered over the axes in rank order; with
+    live ``head_axes`` the SSM state holds this rank's block of heads, and
+    the one-token recurrence runs on those heads, y gathered in rank order
+    before the skip and the gated norm. The projections and the rest run
+    whole on every rank."""
     bb, l, _ = x.shape
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     ph = cfg.ssm_head_dim
@@ -147,13 +161,27 @@ def mamba_block(x, p, cfg, state=None, conv_state=None):
     a = -torch.exp(p["a_log"])
 
     xbc = torch.cat([xin, b, c], dim=-1)
-    xbc, new_conv = causal_conv(xbc, p["conv_w"], conv_state)
+    if chan_axes:
+        j, c_loc = mesh.index_over(chan_axes), conv_state.shape[-1]
+        xbc, new_conv = causal_conv(_block(xbc, -1, j, c_loc),
+                                    _block(p["conv_w"], -1, j, c_loc),
+                                    conv_state)
+        xbc = mesh.all_gather_axis(xbc, chan_axes, -1)
+    else:
+        xbc, new_conv = causal_conv(xbc, p["conv_w"], conv_state)
     xin, b, c = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
 
     xh = xin.reshape(bb, l, h, ph)
     if state is None:
         y = ssd_chunked(xh, dt, a, b, c, cfg.ssm_chunk)
         new_state = None   # the train path does not expose the state
+    elif head_axes:
+        j, h_loc = mesh.index_over(head_axes), state.shape[1]
+        y1, new_state = ssd_decode(_block(xh[:, 0], 1, j, h_loc),
+                                   _block(dt[:, 0], 1, j, h_loc),
+                                   _block(a, 0, j, h_loc), b[:, 0], c[:, 0],
+                                   state)
+        y = mesh.all_gather_axis(y1, head_axes, 1)[:, None]
     else:
         y1, new_state = ssd_decode(xh[:, 0], dt[:, 0], a, b[:, 0], c[:, 0],
                                    state)

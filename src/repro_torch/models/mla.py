@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import merge_partials
 from repro_torch.models import layers as L
 
 
@@ -72,13 +73,23 @@ def mla_attention_train(x, p, cfg, rope):
     return out, {"c": c, "k_rope": k_rope[:, :, 0, :]}
 
 
-def mla_attention_decode(x, p, cfg, cache, length, rope):
+def mla_attention_decode(x, p, cfg, cache, length, rope, mesh=None,
+                         seq_axes=()):
     """Absorbed decode: x [B,1,d]; cache c [B,S,kv_lora], k_rope [B,S,qr],
     written in place at position length[b]; rope: (cos, sin) of
-    ``length[:, None]`` at ``qk_rope_dim``."""
+    ``length[:, None]`` at ``qk_rope_dim``.
+
+    Under ``mesh`` with live ``seq_axes``, the cache is this rank's
+    segment of positions (its index over those axes × S_loc onwards): the
+    new latent goes in only where position length[b] falls inside it, the
+    softmax runs over the segment's valid positions (log-sum-exp −inf and
+    output 0 where it holds none), and the segments' latent outputs are
+    merged in rank order (`merge_partials`)."""
     b = x.shape[0]
     qn, qr = cfg.qk_nope_dim, cfg.qk_rope_dim
     scale = (qn + qr) ** -0.5
+    s_loc = cache["c"].shape[1]
+    off = mesh.index_over(seq_axes) * s_loc if seq_axes else None
 
     q_nope, q_rope = _project_q(x, p, cfg)                 # [B,1,H,*]
     c_new, kr_new = _project_latent(x, p, cfg)             # [B,1,*]
@@ -86,8 +97,8 @@ def mla_attention_decode(x, p, cfg, cache, length, rope):
     q_rope = L.apply_rope(q_rope, cos, sin)
     kr_new = L.apply_rope(kr_new[:, :, None, :], cos, sin)[:, :, 0, :]
 
-    cache_c = _place_at(cache["c"], c_new, length)
-    cache_kr = _place_at(cache["k_rope"], kr_new, length)
+    cache_c = L.place_at(cache["c"], c_new, length, off)
+    cache_kr = L.place_at(cache["k_rope"], kr_new, length, off)
 
     # absorb W_uk into q: q_lat [B,H,kv_lora]
     q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], p["w_uk"])
@@ -96,24 +107,22 @@ def mla_attention_decode(x, p, cfg, cache, length, rope):
     s_rope = torch.einsum("bhr,bsr->bhs", q_rope[:, 0].to(torch.float32),
                           cache_kr.to(torch.float32))
     logits = (s_lat + s_rope) * scale
-    pos = torch.arange(cache_c.shape[1], device=x.device)
+    pos = (off or 0) + torch.arange(s_loc, device=x.device)
     mask = pos[None, None, :] <= length[:, None, None]
-    logits = torch.where(mask, logits, L.NEG_INF)
-    pr = torch.softmax(logits, dim=-1)
-    o_lat = torch.einsum("bhs,bsr->bhr", pr, cf)
+    if seq_axes:
+        logits = torch.where(mask, logits, float("-inf"))
+        lse = torch.logsumexp(logits, dim=-1)              # [B,H]
+        pr = torch.where(mask, torch.exp(logits - lse[..., None]), 0.0)
+        o_lat = merge_partials(
+            mesh.all_gather_axis(torch.einsum("bhs,bsr->bhr", pr, cf)[None],
+                                 seq_axes, 0),
+            mesh.all_gather_axis(lse[None], seq_axes, 0))
+    else:
+        pr = torch.softmax(torch.where(mask, logits, L.NEG_INF), dim=-1)
+        o_lat = torch.einsum("bhs,bsr->bhr", pr, cf)
     y = torch.einsum("bhr,rhv->bhv", o_lat.to(x.dtype), p["w_uv"])
     out = torch.matmul(y.reshape(b, -1), p["w_o"])[:, None, :]
     return out, {"c": cache_c, "k_rope": cache_kr}
-
-
-def _place_at(cache: torch.Tensor, new: torch.Tensor,
-              length: torch.Tensor) -> torch.Tensor:
-    """Write new [B,1,D] at position length[b] of cache [B,S,D], IN PLACE
-    (an indexed write; the reference blends a one-hot into a new cache,
-    with the same values for finite inputs). Returns ``cache``."""
-    rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, length.long()] = new[:, 0].to(cache.dtype)
-    return cache
 
 
 def init_mla_cache(batch: int, seq: int, cfg, dtype, device,

@@ -10,8 +10,9 @@ Public API (functions of a params dict, as the reference's pytree):
     param_specs(cfg, mesh), dp_axes, batch_spec  -> partition specs
     forward(params, batch, cfg, device, mesh)    -> logits [B, S, V]
     loss_fn(params, batch, cfg, device, mesh)    -> mean next-token CE
-    prefill(params, batch, cfg, device)          -> last-position logits
-    decode_step(params, cache, batch, length, cfg, device) -> (logits, cache)
+    prefill(params, batch, cfg, device, mesh)    -> last-position logits
+    decode_step(params, cache, batch, length, cfg, device, mesh)
+                                                 -> (logits, cache)
     generate(params, cfg, prompt, new_tokens, device)      -> new tokens
 
 Parameters keep the reference's layout: layers stacked along a leading
@@ -46,19 +47,26 @@ rules) and its rows of the batch: every leaf is gathered on use
 axes), the routed experts stay split over "model" (`moe.moe_ffn`) and the
 token embedding is vocab-parallel where "model" divides the vocabulary.
 The dense matmuls are not split over "model" (each model rank computes
-them whole).
+them whole). `prefill` and `decode_step` take the same per-rank contract,
+the decode cache as a `ShardedCache` of this rank's shards
+(``launch.specs.cache_specs``): kv heads, SSM heads and conv channels
+split over "model" run on the rank's block and are gathered in rank
+order; a sequence split over ranks runs the decode kernel on the rank's
+segment with its log-sum-exp, and the segments' partials are merged in
+rank order (``kernels.flash_attention.merge_partials``; MLA's latents
+too).
 """
 from __future__ import annotations
 
 import functools
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.flash_attention import decode_attention
+from repro_torch.kernels.flash_attention import decode_attention, merge_partials
 from repro_torch.launch import sharding as SH
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, axis_tuple
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import mla as MLA
@@ -371,21 +379,60 @@ def _n_stacked(stacked: dict) -> int:
 # Forward
 # ===========================================================================
 
-def _place_at_4d(cache: torch.Tensor, new: torch.Tensor,
-                 length: torch.Tensor) -> torch.Tensor:
-    """Write new [B,1,H,D] at position length[b] of cache [B,S,H,D].
-
-    Updates ``cache`` IN PLACE (an indexed write) and returns it. For finite
-    inputs this gives the values of the reference's one-hot blend
-    ``cache·(1−oh) + oh·new``, which builds a new cache instead."""
-    rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, length.long()] = new[:, 0].to(cache.dtype)
-    return cache
+class _Split(NamedTuple):
+    """The live mesh axes that split one layer's cache: its positions
+    (``seq``) and its heads (``heads``: kv heads, SSM heads or conv
+    channels)."""
+    seq: tuple = ()
+    heads: tuple = ()
 
 
-def _gqa_attention(x, p, cfg, rope, cache=None, length=None):
+def _gqa_decode(q, kk, vv, cache, length, mesh=None,
+                split: _Split = _Split()):
+    """Decode attention over the cache (written in place at length[b]),
+    [B, H, Dh]. Under a mesh, on this rank's shards of it: its kv heads
+    (and their query heads) where ``split.heads`` splits them, its segment
+    of positions where ``split.seq`` does. The new K/V row goes only into
+    the segment that holds position length[b]; kernel 4 runs on the local
+    heads and positions at local length clamp(length + 1 − offset, 0,
+    S_loc), with its f32 output and lse, and the segments' partials are
+    merged in rank order (`merge_partials`); the heads are gathered in
+    rank order. Every collective runs on every rank."""
+    ck, cv = cache["k"], cache["v"]
+    s_loc, hkv_l = ck.shape[1], ck.shape[2]
+    h_l = hkv_l * (q.shape[2] // kk.shape[2])
+    if split.heads:
+        j = mesh.index_over(split.heads)
+        q = q[:, :, j * h_l:(j + 1) * h_l]
+        kk = kk[:, :, j * hkv_l:(j + 1) * hkv_l]
+        vv = vv[:, :, j * hkv_l:(j + 1) * hkv_l]
+    q1 = q[:, 0].contiguous()
+    off = mesh.index_over(split.seq) * s_loc if split.seq else None
+    L.place_at(ck, kk, length, off)
+    L.place_at(cv, vv, length, off)
+    if split.seq:
+        local = torch.clamp(length + 1 - off, 0, s_loc).to(torch.int32)
+        lse = torch.empty(q1.shape[:2], dtype=torch.float32,
+                          device=q1.device)
+        # the partials stay f32 until the merge rounds once, as the
+        # kernel's own merge of splits does
+        y = decode_attention(q1, ck, cv, local, lse, torch.float32)
+        y = merge_partials(mesh.all_gather_axis(y[None], split.seq, 0),
+                           mesh.all_gather_axis(lse[None], split.seq, 0)
+                           ).to(q1.dtype)
+    else:
+        y = decode_attention(q1, ck, cv, (length + 1).to(torch.int32))
+    if split.heads:
+        y = mesh.all_gather_axis(y, split.heads, 1)
+    return y
+
+
+def _gqa_attention(x, p, cfg, rope, cache=None, length=None, mesh=None,
+                   split: _Split | None = None):
     """Standard GQA attention. rope: (cos, sin) of the positions, from
-    `_rope`; cache: dict(k, v) [B,S,Hkv,Dh] or None."""
+    `_rope`; cache: dict(k, v) [B,S,Hkv,Dh] or None. Under ``mesh`` the
+    decode runs on this rank's shards of the cache, split as ``split``
+    says (`_gqa_decode`)."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = torch.matmul(x, p["wq"])
@@ -404,28 +451,27 @@ def _gqa_attention(x, p, cfg, rope, cache=None, length=None):
         y = L.flash_attention(q, kk, vv, causal=cfg.causal)
         new_cache = {"k": kk, "v": vv}
     else:
-        ck = _place_at_4d(cache["k"], kk, length)
-        cv = _place_at_4d(cache["v"], vv, length)
-        y = decode_attention(q[:, 0].contiguous(), ck, cv,
-                             (length + 1).to(torch.int32))[:, None]
-        new_cache = {"k": ck, "v": cv}
+        y = _gqa_decode(q, kk, vv, cache, length, mesh,
+                        split or _Split())[:, None]
+        new_cache = cache
     y = y.reshape(b, s, h * dh)
     return torch.matmul(y, p["wo"]), new_cache
 
 
 def _attn_ffn_layer(x, lp, cfg, rope, cache=None, length=None, moe=False,
-                    mesh=None):
+                    mesh=None, split: _Split | None = None):
     h = x
     xa = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
     if cfg.use_mla:
         if cache is None:
             ao, new_cache = MLA.mla_attention_train(xa, lp["attn"], cfg, rope)
         else:
-            ao, new_cache = MLA.mla_attention_decode(xa, lp["attn"], cfg,
-                                                     cache, length, rope)
+            ao, new_cache = MLA.mla_attention_decode(
+                xa, lp["attn"], cfg, cache, length, rope, mesh,
+                () if split is None else split.seq)
     else:
         ao, new_cache = _gqa_attention(xa, lp["attn"], cfg, rope, cache,
-                                       length)
+                                       length, mesh, split)
     h = h + ao
     xf = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
     fp = lp["ffn"]
@@ -451,10 +497,11 @@ def _rope(cfg, positions):
 
 
 def _scan_layers(x, stacked, cfg, positions, caches=None, length=None,
-                 moe=False, use=None, stack=None):
+                 moe=False, use=None, stack=None, split=None):
     """The attention layer stack in order (the reference's ``lax.scan``);
     an empty stack (None) passes x through. ``caches``: a dict of [L, ...]
-    tensors ({"k", "v"}, or MLA's {"c", "k_rope"}), written in place.
+    tensors ({"k", "v"}, or MLA's {"c", "k_rope"}), written in place
+    (under a mesh this rank's shards, split as ``split`` says).
     ``use`` (a `_Use`, under a mesh) gathers each layer's shards of the
     stack named ``stack`` as the layer runs; a MoE layer's FFN stays with
     `moe.moe_ffn`."""
@@ -467,22 +514,27 @@ def _scan_layers(x, stacked, cfg, positions, caches=None, length=None,
         if use is not None:
             lp = use.layer(lp, stack, keep=("ffn",) if moe else ())
         x, _ = _attn_ffn_layer(x, lp, cfg, rope, cache, length, moe,
-                               None if use is None else use.mesh)
+                               None if use is None else use.mesh, split)
     return x, caches
 
 
 # --- SSM / hybrid stacks ----------------------------------------------------
 
-def _scan_mamba(x, layers: list, cfg, states=None, convs=None):
+def _scan_mamba(x, layers: list, cfg, states=None, convs=None, mesh=None,
+                splits=None):
     """Mamba2 layers (per-layer dicts) in order, each ``h + block(norm(h))``.
     Decode (``states`` [L, B, H, P, N], ``convs`` [L, B, W-1, C]) writes
-    each layer's new states in place."""
+    each layer's new states in place; under ``mesh`` they are this rank's
+    shards, their heads and channels split as ``splits`` (the (ssm, conv)
+    `_Split`s) says."""
+    heads, chans = ((), ()) if splits is None else (s.heads for s in splits)
     for i, lp in enumerate(layers):
         xa = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         mo, (ns, nc) = M2.mamba_block(
             xa, lp["mamba"], cfg,
             state=None if states is None else states[i],
-            conv_state=None if convs is None else convs[i])
+            conv_state=None if convs is None else convs[i], mesh=mesh,
+            head_axes=heads, chan_axes=chans)
         x = x + mo
         if states is not None:
             states[i].copy_(ns)
@@ -490,12 +542,14 @@ def _scan_mamba(x, layers: list, cfg, states=None, convs=None):
     return x
 
 
-def _shared_attn_block(h, x0, sp, cfg, rope, cache=None, length=None):
+def _shared_attn_block(h, x0, sp, cfg, rope, cache=None, length=None,
+                       mesh=None, split=None):
     """Zamba2 shared block: attention+MLP on concat([h, x0]) → residual to
     h."""
     z = torch.cat([h, x0], dim=-1)
     za = L.rms_norm(z, sp["ln"], cfg.norm_eps)
-    ao, new_cache = _gqa_attention(za, sp["attn"], cfg, rope, cache, length)
+    ao, new_cache = _gqa_attention(za, sp["attn"], cfg, rope, cache, length,
+                                   mesh, split)
     z2 = L.rms_norm(z + torch.cat([ao, torch.zeros_like(ao)], dim=-1),
                     sp["ln2"], cfg.norm_eps)
     fp = sp["ffn"]
@@ -514,10 +568,14 @@ def _hybrid_segments(cfg) -> list:
     return segs
 
 
-def _hybrid(x, params, cfg, positions, cache=None, length=None, use=None):
+def _hybrid(x, params, cfg, positions, cache=None, length=None, use=None,
+            splits=None):
     """Zamba2's stack: before each segment of ``attn_every`` Mamba2 layers,
     the shared block on concat([h, embedding]) (cache["shared"] slice si
-    for application si in decode)."""
+    for application si in decode; ``splits`` the cache's `_Split`s under a
+    mesh)."""
+    mesh = None if use is None else use.mesh
+    splits = splits or {}
     x0 = x
     rope = _rope(cfg, positions)
     layers = _unstack(params["layers"], cfg.n_layers)
@@ -529,11 +587,14 @@ def _hybrid(x, params, cfg, positions, cache=None, length=None, use=None):
     for si, seg in enumerate(_hybrid_segments(cfg)):
         sc = (None if cache is None else
               {k: v[si] for k, v in cache["shared"].items()})
-        x, _ = _shared_attn_block(x, x0, shared, cfg, rope, sc, length)
+        x, _ = _shared_attn_block(x, x0, shared, cfg, rope, sc, length,
+                                  mesh, splits.get("shared"))
         x = _scan_mamba(
             x, layers[off:off + seg], cfg,
             None if cache is None else cache["ssm"][off:off + seg],
-            None if cache is None else cache["conv"][off:off + seg])
+            None if cache is None else cache["conv"][off:off + seg], mesh,
+            None if "ssm" not in splits else (splits["ssm"],
+                                              splits["conv"]))
         off += seg
     return x
 
@@ -718,10 +779,15 @@ def loss_fn(params, batch, cfg: ModelConfig, device="cuda",
     return total / torch.clamp(count, min=1.0)
 
 
-def prefill(params, batch, cfg: ModelConfig, device="cuda") -> torch.Tensor:
+def prefill(params, batch, cfg: ModelConfig, device="cuda",
+            mesh=None) -> torch.Tensor:
     """Forward over a full prompt; returns last-position logits [B, V]
-    (the cache is rebuilt decode-side, as in the reference)."""
-    return forward(params, batch, cfg, device)[:, -1]
+    (the cache is rebuilt decode-side, as in the reference). Under
+    ``mesh``, `forward`'s per-rank contract: ``params`` this rank's
+    shards, ``batch`` its rows (its block over the data axes when they
+    divide B, else every row); the logits of those rows, the same on every
+    "model" rank."""
+    return forward(params, batch, cfg, device, mesh)[:, -1]
 
 
 # ===========================================================================
@@ -770,12 +836,56 @@ def _init_cache(cfg: ModelConfig, batch: int, seq: int,
     raise ValueError(fam)
 
 
+class ShardedCache(dict):
+    """A rank's shards of a decode cache under a mesh: the tree of
+    `init_cache`, each leaf this rank's block as ``specs`` (the tree of
+    ``launch.specs.cache_specs(cfg, mesh, B, S)``) lays it out. Made by
+    ``launch.specs.shard_cache`` (from a whole cache) or
+    ``launch.specs.init_sharded_cache`` (zeros); `decode_step` reads the
+    layout from ``specs``."""
+
+    def __init__(self, tree: dict, specs: dict):
+        super().__init__(tree)
+        self.specs = specs
+
+
+def _cache_splits(cache: ShardedCache, mesh: Mesh) -> dict:
+    """{group: `_Split`} of each group of a sharded cache ("layers",
+    "dense_layers", "moe_layers", "shared": K/V or MLA latents; "ssm":
+    heads; "conv": channels), from the specs of its [L, ...] leaves."""
+    def live(entry):
+        return mesh.live_axes(axis_tuple(entry))
+
+    out = {}
+    for name, sp in cache.specs.items():
+        if name == "ssm":                   # [L, B, H, P, N]
+            out[name] = _Split(heads=live(sp[2]))
+        elif name == "conv":                # [L, B, W-1, C]
+            out[name] = _Split(heads=live(sp[3]))
+        elif "k" in sp:                     # [L, B, S, Hkv, Dh]
+            out[name] = _Split(seq=live(sp["k"][2]), heads=live(sp["k"][3]))
+        else:                               # MLA [L, B, S, r]
+            out[name] = _Split(seq=live(sp["c"][2]))
+    return out
+
+
 def decode_step(params, cache, batch, length, cfg: ModelConfig,
-                device="cuda"):
+                device="cuda", mesh=None):
     """One token for every sequence. batch {"tokens": [B,1]}; length [B]
     int32, the number of tokens already in the cache. Writes the new
     position (K/V or latents at length[b], SSM and conv states) in place
-    and returns (logits [B, V], cache)."""
+    and returns (logits [B, V], cache).
+
+    Under ``mesh`` (a `launch.mesh.Mesh`) the per-rank contract:
+    ``params`` are this rank's shards (`param_specs`), gathered on use;
+    ``cache`` a `ShardedCache` of its shards as ``launch.specs.
+    cache_specs(cfg, mesh, B, S)`` lays them out (the batch over the data
+    axes where they divide B, else the sequence; kv heads, SSM heads and
+    conv channels over "model" where it divides them, else, for K/V, the
+    sequence); ``tokens`` and ``length`` its rows (its block over the data
+    axes when they divide B, else every row). Returns the logits of its
+    rows [B_loc, V], the same on every "model" rank. On the (1, 1) local
+    mesh the step is bit-identical to ``mesh=None``."""
     _no_decode(cfg)
     dev = resolve_device(device)
     tokens = batch["tokens"]
@@ -783,25 +893,43 @@ def decode_step(params, cache, batch, length, cfg: ModelConfig,
                     (params["embed"], "params"),
                     (next(_cache_leaves(cache)), "cache")):
         _on(t, dev, what)
-    x = embed_lookup(params["embed"], tokens)
+    use = splits = None
+    top = params
+    if mesh is not None:
+        use = _Use(cfg, check_mesh(mesh, dev), params)
+        if not isinstance(cache, ShardedCache):
+            raise TypeError("under a mesh the cache must be a ShardedCache "
+                            "(launch.specs.shard_cache or "
+                            "init_sharded_cache)")
+        splits = _cache_splits(cache, mesh)
+        top = {k: use.top(k) for k in ("embed", "final_norm", "lm_head")}
+    x = embed_lookup(top["embed"], tokens, cfg, mesh)
     positions = length[:, None]
     fam = cfg.family
+
+    def stack(x, name, moe=False):
+        return _scan_layers(x, params[name], cfg, positions,
+                            caches=cache[name], length=length, moe=moe,
+                            use=use, stack=name,
+                            split=None if splits is None else splits[name])[0]
+
     if fam in ("dense", "vlm"):
-        x, _ = _scan_layers(x, params["layers"], cfg, positions,
-                            caches=cache["layers"], length=length)
+        x = stack(x, "layers")
     elif fam == "moe":
-        x, _ = _scan_layers(x, params["dense_layers"], cfg, positions,
-                            caches=cache["dense_layers"], length=length)
-        x, _ = _scan_layers(x, params["moe_layers"], cfg, positions,
-                            caches=cache["moe_layers"], length=length,
-                            moe=True)
+        x = stack(x, "dense_layers")
+        x = stack(x, "moe_layers", moe=True)
     elif fam == "ssm":
-        x = _scan_mamba(x, _unstack(params["layers"], cfg.n_layers), cfg,
-                        states=cache["ssm"], convs=cache["conv"])
+        layers = _unstack(params["layers"], cfg.n_layers)
+        if use is not None:
+            layers = [use.layer(lp, "layers") for lp in layers]
+        x = _scan_mamba(x, layers, cfg, states=cache["ssm"],
+                        convs=cache["conv"], mesh=mesh,
+                        splits=None if splits is None else (splits["ssm"],
+                                                            splits["conv"]))
     else:                                   # hybrid
-        x = _hybrid(x, params, cfg, positions, cache, length)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = torch.matmul(x, params["lm_head"])
+        x = _hybrid(x, params, cfg, positions, cache, length, use, splits)
+    x = L.rms_norm(x, top["final_norm"], cfg.norm_eps)
+    logits = torch.matmul(x, top["lm_head"])
     return logits[:, 0], cache
 
 

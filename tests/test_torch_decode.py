@@ -299,7 +299,7 @@ def test_cuda_idle_heads_write_nothing(cuda, dtype, s):
         ticket = build.zeroed_scratch("decode_attention", cuda,
                                       p.pairs(b, hkv), build.stream_of(q))
     code = FA._lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), ln.data_ptr(),
-                     out.data_ptr(), part.data_ptr() if part is not None
+                     out.data_ptr(), None, part.data_ptr() if part is not None
                      else None, ticket.data_ptr() if ticket is not None
                      else None, b, h, hkv, s, d, p.gt, p.n_gblk, p.chunk,
                      p.n_split, FA._DTYPES[tdt], build.stream_of(q))
@@ -310,3 +310,49 @@ def test_cuda_idle_heads_write_nothing(cuda, dtype, s):
     tol = F32_TOL if dtype == "float32" else BF16_TOL
     torch.testing.assert_close(out.view(b, h, d).float(), want.float(),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,hkv,d,s", [
+    (2, 10, 10, 128, 8), (1, 10, 10, 128, 2048), (2, 48, 1, 128, 512),
+    (2, 4, 2, 256, 150)])
+def test_cuda_lse_mode_matches_twin_and_keeps_the_output(cuda, dtype, b, h,
+                                                         hkv, d, s):
+    """The lse mode (a rank's softmax partial under a mesh): the output
+    bit-equal to the call without lse, the lse within 1e-5 of the twin's
+    and -inf exactly where the twin's is (length 0), unsplit and split
+    plans alike; the f32 output of bf16 inputs (the mesh's partial) within
+    F32_TOL of the twin's f32 output, and its bf16 rounding bit-equal to
+    the bf16 output."""
+    q, k, v, _ = _inputs(b, h, hkv, d, s, seed=s + h)
+    tdt = getattr(torch, dtype)
+    args = [torch.from_numpy(x).to(cuda, tdt) for x in (q, k, v)]
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    for lv in ([0] * b, [s] * b, [1 + i * (s - 1) // b for i in range(b)]):
+        ln = torch.tensor(lv, dtype=torch.int32, device=cuda)
+        lse = torch.empty((b, h), dtype=torch.float32, device=cuda)
+        plse = torch.empty_like(lse)
+        got = FA.decode_attention(*args, ln, lse)
+        want = FA.decode_attention_plain(*args, ln, plse)
+        torch.cuda.synchronize()
+        assert torch.equal(got, FA.decode_attention(*args, ln))
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        inf = torch.isinf(plse)
+        assert torch.equal(inf, torch.isinf(lse))
+        assert torch.equal(lse[inf], plse[inf])
+        torch.testing.assert_close(lse[~inf], plse[~inf], rtol=0, atol=1e-5)
+        if tdt == torch.bfloat16:
+            lse32 = torch.empty_like(lse)
+            got32 = FA.decode_attention(*args, ln, lse32, torch.float32)
+            want32 = FA.decode_attention_plain(*args, ln, None,
+                                               torch.float32)
+            torch.cuda.synchronize()
+            assert got32.dtype == torch.float32
+            assert torch.equal(got32.to(tdt), got)
+            assert torch.equal(lse32, lse)
+            torch.testing.assert_close(got32, want32, rtol=F32_TOL,
+                                       atol=F32_TOL)
+    torch.cuda.synchronize()
+    assert not any(bool(buf.any()) for buf in build._ZEROED.values())

@@ -212,7 +212,7 @@ def test_place_at_4d_writes_in_place_like_the_one_hot_blend():
     want = np.asarray(R_M._place_at_4d(*map(jnp.asarray, (cache, new,
                                                           length))))
     t = torch.from_numpy(cache.copy())
-    out = T_M._place_at_4d(t, torch.from_numpy(new), torch.from_numpy(length))
+    out = T_L.place_at(t, torch.from_numpy(new), torch.from_numpy(length))
     assert out.data_ptr() == t.data_ptr()
     np.testing.assert_array_equal(t.numpy(), want)
 

@@ -365,7 +365,7 @@ def test_mla_place_at_writes_in_place_like_the_one_hot_blend():
     length = np.array([0, 6, 3], np.int32)
     want = np.asarray(R_MLA._place_at(*_j(cache, new, length)))
     t = torch.from_numpy(cache.copy())
-    out = T_MLA._place_at(t, torch.from_numpy(new), torch.from_numpy(length))
+    out = T_L.place_at(t, torch.from_numpy(new), torch.from_numpy(length))
     assert out.data_ptr() == t.data_ptr()
     np.testing.assert_array_equal(t.numpy(), want)
 

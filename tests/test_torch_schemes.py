@@ -36,7 +36,11 @@ cifar10 (the paper's dataset, the reference's default model cnn_cifar,
 ResNet-18 at width 16: 699,066 parameters): 8 clients, participation 0.25,
 data_scale 0.01, τ=1, b_max=4, 2 rounds, for caesar and prowd, with the
 same exact checks and tolerances.
+
+The reference's runs are computed once for the module, each on a thread
+of its own (`references`); the port's run in each case's fixture.
 """
+import concurrent.futures
 import dataclasses
 
 import numpy as np
@@ -61,6 +65,19 @@ TRAFFIC_RTOL = 1e-5
 GLOBAL_REL_L2 = 1e-5
 TOPK_ELEMENT_BITS = 64      # index + f32 value of a top-k upload element
 HYBRID_ELEMENT_BITS = 31    # f32 value less its 1-bit sign, hybrid payload
+REFERENCE_THREADS = 4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """This module's torch work is small ops beside the other test
+    workers' JAX and torch threads: with one intra-op thread they do not
+    wait on a pool the other workers' threads crowd out (under six xdist
+    workers a step that takes 0.9 s alone took 44 s with eight)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _run_reference(kw, ckw, **over):
@@ -85,26 +102,44 @@ def _run_reference(kw, ckw, **over):
     return sim, sim.run(), log
 
 
-def _pair(kw, ckw, model, **over):
-    ref, rh, rlog = _run_reference(kw, ckw, **over)
+HAR_CASES = [(scheme, seed) for seed in (0, 1) for scheme in SCHEMES]
+CIFAR_CASES = ["caesar", "prowd"]
+
+
+@pytest.fixture(scope="module")
+def references():
+    """Every case's reference run, computed once for the module, each on a
+    thread of its own: {(dataset, scheme, seed): (sim, History, log)}."""
+    jobs = {("har", s, seed): (HAR, HAR_CAESAR, s, seed)
+            for s, seed in HAR_CASES}
+    jobs.update({("cifar10", s, 0): (CIFAR, CIFAR_CAESAR, s, 0)
+                 for s in CIFAR_CASES})
+    with concurrent.futures.ThreadPoolExecutor(REFERENCE_THREADS) as ex:
+        futures = {k: ex.submit(_run_reference, kw, ckw, scheme=s, seed=seed)
+                   for k, (kw, ckw, s, seed) in jobs.items()}
+        return {k: f.result() for k, f in futures.items()}
+
+
+def _pair(reference, kw, ckw, model, **over):
+    ref, rh, rlog = reference
     port = TSIM.Simulator(
         TSIM.SimConfig(device="cpu", caesar=TCaesar(**ckw), **kw, **over),
         init_flat=from_reference(np.asarray(ref.flat0), model))
     return ref, rh, rlog, port, port.run()
 
 
-@pytest.fixture(scope="module", params=[
-    (scheme, seed) for seed in (0, 1) for scheme in SCHEMES],
-    ids=lambda p: f"{p[0]}-seed{p[1]}")
-def har_runs(request):
+@pytest.fixture(scope="module", params=HAR_CASES,
+                ids=lambda p: f"{p[0]}-seed{p[1]}")
+def har_runs(request, references):
     scheme, seed = request.param
-    return _pair(HAR, HAR_CAESAR, "cnn_har", scheme=scheme, seed=seed)
+    return _pair(references[("har", scheme, seed)], HAR, HAR_CAESAR,
+                 "cnn_har", scheme=scheme, seed=seed)
 
 
-@pytest.fixture(scope="module", params=["caesar", "prowd"])
-def cifar_runs(request):
-    return _pair(CIFAR, CIFAR_CAESAR, "cnn_cifar", scheme=request.param,
-                 seed=0)
+@pytest.fixture(scope="module", params=CIFAR_CASES)
+def cifar_runs(request, references):
+    return _pair(references[("cifar10", request.param, 0)], CIFAR,
+                 CIFAR_CAESAR, "cnn_cifar", scheme=request.param, seed=0)
 
 
 def _check_plans(rlog, port, rounds):

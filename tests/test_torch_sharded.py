@@ -28,14 +28,12 @@ tests/test_torch_planning.py's ``share`` cases do.
   capped at 8 rows with host offload (every round evicts across ranks)
   equals the uncapped run bit for bit, and resumes from a state_dict
   after round 2 bit for bit;
-* a world of 1 (no group, and a gloo group of 1) runs bit-identical to the
-  unsharded run, ragged and masked;
 * the refusals: the reference's exception types and messages (multi_host
   without sharded, the wire engine and diurnal availability with sharded,
   n_clients not dividing over the shards) and its cohort warning.
-The two-shard ClientStateStore under a group of 2 ranks (each holding only
-its segment) equals the reference store of tests/test_torch_state_store.py
-in one process, and the store in one process.
+The reference's subprocess and the port's ranks are computed once for the
+module, the ranks while the reference runs (`world`). A world of 1 and
+the two-shard store are tests/test_torch_sharded_layouts.py's.
 """
 import json
 import os
@@ -43,17 +41,15 @@ import pickle
 import subprocess
 import sys
 import textwrap
+import time
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax.numpy as jnp  # noqa: E402
-import torch.distributed as dist  # noqa: E402
 
 import torch_sharded_ranks as RK  # noqa: E402
-from repro.fl import state as RS  # noqa: E402
 from repro_torch.core.caesar import CaesarConfig as TCaesar  # noqa: E402
 from repro_torch.fl import simulation as TSIM  # noqa: E402
 from repro_torch.launch import mesh as MESH  # noqa: E402
@@ -73,7 +69,20 @@ ACC_TOL = 5e-3               # tests/test_round_engine.py's sharded gate
 TOPK_ELEMENT_BITS = 64       # index + f32 value of a top-k upload element
 HYBRID_ELEMENT_BITS = 31     # f32 value less its 1-bit sign
 SPAWN_TIMEOUT_S = 180.0
+REFERENCE_TIMEOUT_S = 600.0
 RESUME = ("capped", 2)       # the capped run, cut after round 2
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """This module's torch work is small ops beside the other test
+    workers' JAX and torch threads: with one intra-op thread they do not
+    wait on a pool the other workers' threads crowd out (under six xdist
+    workers a step that takes 0.9 s alone took 44 s with eight)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 _REFERENCE = textwrap.dedent("""
     import os
@@ -84,9 +93,9 @@ _REFERENCE = textwrap.dedent("""
     from repro.core.caesar import CaesarConfig
     from repro.fl.availability import AvailabilityConfig
     from repro.fl.simulation import SimConfig, Simulator
-    cfg_kw, caesar_kw, modes, out = json.loads(sys.argv[1])
+    cfg_kw, caesar_kw, modes, out, init_out = json.loads(sys.argv[1])
     base = SimConfig(backend="jnp", sharded=True, multi_host=True, **cfg_kw)
-    res = {}
+    res, sims = {}, {}
     for name, over in modes.items():
         over = dict(over)
         ckw = dict(caesar_kw, use_error_feedback=over.pop(
@@ -114,11 +123,20 @@ _REFERENCE = textwrap.dedent("""
 
         sim.planner.plan = plan_rec
         setattr(sim.executor, step_name, step_rec)
+        sims[name] = (sim, log)
+    # what the port's ranks start from (the initial vector and the static
+    # importance and upload ratios), before any run
+    init = {name: {"flat0": np.asarray(sim.flat0), "state": {
+        k: np.asarray(getattr(sim.caesar_state, k))
+        for k in ("importance", "upload_ratio")}}
+        for name, (sim, _) in sims.items()}
+    with open(init_out + ".tmp", "wb") as f:
+        pickle.dump(init, f)
+    os.replace(init_out + ".tmp", init_out)
+    for name, (sim, log) in sims.items():
         h = sim.run()
         res[name] = {"log": log, "global": np.asarray(sim.global_flat),
-                     "flat0": np.asarray(sim.flat0), "state": {
-                         k: np.asarray(getattr(sim.caesar_state, k))
-                         for k in ("importance", "upload_ratio")},
+                     **init[name],
                      "history": {k: list(getattr(h, k)) for k in (
                          "rounds", "sim_time", "traffic_bits", "accuracy",
                          "waiting", "waiting_per_round")}}
@@ -146,19 +164,6 @@ _REFERENCE = textwrap.dedent("""
 """)
 
 
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
-    out = tmp_path_factory.mktemp("ref") / "ref.pkl"
-    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
-    r = subprocess.run(
-        [sys.executable, "-c", _REFERENCE,
-         json.dumps([CFG, CAESAR, MODES, str(out)])],
-        capture_output=True, text=True, timeout=600, env=env)
-    assert r.returncode == 0, r.stdout + r.stderr
-    with open(out, "rb") as f:
-        return pickle.load(f)
-
-
 def _cfg(mode: str, **over) -> TSIM.SimConfig:
     m = dict(MODES[mode])
     ckw = dict(CAESAR, use_error_feedback=m.pop("use_error_feedback", False))
@@ -166,17 +171,17 @@ def _cfg(mode: str, **over) -> TSIM.SimConfig:
                           **{**CFG, **m, **over})
 
 
-@pytest.fixture(scope="module")
-def ranks(reference, tmp_path_factory):
-    d = tmp_path_factory.mktemp("ranks")
-    init = from_reference(reference["ragged"]["flat0"], "cnn_har").numpy()
+def _spawn_ranks(start: dict, d) -> list:
+    """The port's world of WORLD ranks from the reference's initial vector
+    and importance (``start``: mode -> {"flat0", "state"})."""
+    init = from_reference(start["ragged"]["flat0"], "cnn_har").numpy()
     cases = {m: (_cfg(m, sharded=True, multi_host=True), init,
-                 reference[m]["state"]) for m in MODES}
+                 start[m]["state"]) for m in MODES}
     cases["bf16"] = (_cfg("ragged", sharded=True,
                           buffer_dtype="bfloat16"), init, None)
     cases["capped"] = (_cfg("ragged", sharded=True, state_capacity=8,
                             state_offload="host"), init,
-                       reference["ragged"]["state"])
+                       start["ragged"]["state"])
     refusals = {"refuse_indivisible": _cfg("ragged", sharded=True,
                                            n_clients=10),
                 "refuse_cohort": _cfg("ragged", sharded=True,
@@ -186,6 +191,51 @@ def ranks(reference, tmp_path_factory):
                 RESUME),
                timeout_s=SPAWN_TIMEOUT_S)
     return RK.load(str(d / "out"), WORLD)
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """(the reference's results, every rank's), computed once for the
+    module: the reference's subprocess writes each mode's initial vector
+    and importance before its runs, and the port's ranks run from them
+    while it runs."""
+    d = tmp_path_factory.mktemp("world")
+    out, init_out = d / "ref.pkl", d / "init.pkl"
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _REFERENCE,
+         json.dumps([CFG, CAESAR, MODES, str(out), str(init_out)])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        deadline = time.monotonic() + REFERENCE_TIMEOUT_S
+        while not init_out.exists() and proc.poll() is None \
+                and time.monotonic() < deadline:
+            time.sleep(0.1)
+        if not init_out.exists():
+            proc.kill()
+            stdout, stderr = proc.communicate()
+            pytest.fail("the reference wrote no initial state: "
+                        + stdout + stderr)
+        with open(init_out, "rb") as f:
+            ranks = _spawn_ranks(pickle.load(f), d)
+        stdout, stderr = proc.communicate(timeout=REFERENCE_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, stdout + stderr
+    with open(out, "rb") as f:
+        return pickle.load(f), ranks
+
+
+@pytest.fixture(scope="module")
+def reference(world):
+    return world[0]
+
+
+@pytest.fixture(scope="module")
+def ranks(world):
+    return world[1]
 
 
 def _flip_bits(rl, pl, scheme_bits=TOPK_ELEMENT_BITS):
@@ -289,36 +339,6 @@ def test_resume_places_each_rank_its_segment(ranks):
             want["history"]["sim_time"][RESUME[1] // CFG["eval_every"]:]
 
 
-@pytest.mark.parametrize("ragged", [True, False], ids=["ragged", "masked"])
-def test_world_of_one_is_bit_identical_to_unsharded(ragged, tmp_path):
-    kw = dict(CFG, participation=0.25, rounds=2)
-    ckw = TCaesar(**CAESAR)
-
-    def run(**over):
-        sim = TSIM.Simulator(TSIM.SimConfig(device="cpu", caesar=ckw,
-                                            ragged=ragged, **kw, **over))
-        return sim, sim.run()
-
-    base, hb = run()
-    alone, ha = run(sharded=True)
-    assert alone.n_dev == 1 and alone.layout.group is None
-    MESH.init_distributed(f"file://{tmp_path / 'pg'}", 1, 0,
-                          backend="gloo")
-    try:
-        with pytest.warns(UserWarning, match="no multi-process"):
-            grouped, hg = run(sharded=True, multi_host=True)
-        assert grouped.layout.group is not None
-    finally:
-        dist.destroy_process_group()
-    for sim, h in ((alone, ha), (grouped, hg)):
-        assert torch.equal(sim.global_flat, base.global_flat)
-        assert torch.equal(sim.store.pool, base.store.pool)
-        assert h.traffic_bits == hb.traffic_bits
-        assert h.accuracy == hb.accuracy and h.sim_time == hb.sim_time
-        for a, b in zip(sim.round_log, base.round_log):
-            assert np.array_equal(a["parts"], b["parts"])
-
-
 @pytest.mark.parametrize("name,over", [
     ("multi_host_alone", dict(multi_host=True)),
     ("wire", dict(sharded=True, wire="loopback")),
@@ -343,46 +363,3 @@ def test_world_dependent_refusals_match_the_reference(reference, ranks,
             want["warnings"]
     if name == "cohort":
         assert want["raised"] is None and len(want["warnings"]) == 1
-
-
-# -- the two-shard store ----------------------------------------------------
-
-N_PARAMS = 8
-STORE_KW = dict(capacity=8, cohort=4, ef_width=2)
-MAPS = ("slot_of", "client_of", "last_used", "evicted_tier", "centroids",
-        "centroid_n", "centroid_w")
-
-
-def _stratified(rounds=5, seed=7):
-    rng = np.random.default_rng(seed)
-    return [np.concatenate([rng.choice(np.arange(8 * s, 8 * s + 8), 2,
-                                       replace=False) for s in range(2)])
-            for _ in range(rounds)]
-
-
-def test_two_ranks_each_hold_their_segment_of_the_reference_store(tmp_path):
-    seq = _stratified()
-    MESH.spawn(RK.store_rank, 2,
-               (2, str(tmp_path / "pg"), str(tmp_path / "out"), STORE_KW,
-                seq, N_PARAMS), timeout_s=SPAWN_TIMEOUT_S)
-    per_rank = RK.load(str(tmp_path / "out"), 2)
-    ref = RS.ClientStateStore(16, N_PARAMS, np.arange(N_PARAMS,
-                                                      dtype=np.float32),
-                              n_shards=2, **STORE_KW)
-    for t, parts in enumerate(seq, 1):
-        slots = ref.prepare(np.asarray(parts), t)
-        rows = (np.asarray(parts, np.float32)[:, None] * 100.0 + t
-                + np.arange(N_PARAMS, dtype=np.float32)[None, :])
-        ref.adopt(ref.pool.at[jnp.asarray(slots)].set(jnp.asarray(rows)),
-                  ref.ef_pool.at[jnp.asarray(slots)].set(
-                      jnp.asarray(-rows[:, :2])))
-        want = ref.state_dict()
-        for r, rounds in enumerate(per_rank):
-            got = rounds[t - 1]
-            np.testing.assert_array_equal(got["slots"], slots)
-            assert got["pool_rows"] == ref.cap_per_shard
-            assert got["row0"] == r * ref.cap_per_shard
-            for k in want:
-                np.testing.assert_array_equal(got["state"][k], want[k],
-                                              err_msg=k)
-    assert ref.n_evictions > 0
