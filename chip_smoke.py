@@ -9,7 +9,8 @@ serving Qwen1.5-4B at full width and Track-B training of it, and serving
 and Track-B training of the LM zoo's other families at their published
 widths (Mamba2, Zamba2, InternVL2, HuBERT, Llama-4-Scout and DeepSeek-V3,
 the last two cut in depth), Track B over a pod mesh of 4 ranks on the
-card, and serving under a mesh of 4 and 2 ranks on the card.
+card, serving under a mesh of 4 and 2 ranks on the card, and the port's
+invariant checker (runtime contracts and ownership audit) on the card.
 
     python3 chip_smoke.py
 
@@ -132,7 +133,7 @@ Phases, each of which fails the script on any error:
    embedding), DeepSeek-V3's smoke config and the leaf shards of phase
    11's full-width points — exact against the plain
    versions (Σ|x| within rtol 1e-5); at Qwen's and the example's widths
-   and every width of at least 10^8 elements also one CUDA kernel per
+   and the widest (Llama-4-Scout's embedding) also one CUDA kernel per
    call and timed as in phase 3;
 6d. capped store: the dense HAR point with state_capacity 640 (1.28× the
    cohort: every round after the first evicts) and host, then memmap
@@ -151,6 +152,20 @@ Phases, each of which fails the script on any error:
    state_dict → CheckpointManager.save → restore → a fresh Simulator's
    load_state_dict → run(start_round=cut + 1), bit-identical to the
    straight run (global vector, History tail, fault_log, avail_log);
+6g. analysis: the port's invariant checker on the card
+   (`repro_torch.analysis`): ``run_contracts`` — no f64 tensor in a round
+   step, the pools written in place, the tier shapes on the lattice and
+   no host sync but the sanctioned ones (end-of-round readback, the
+   wire's per-chunk copy, the eval boundary), on the ragged, masked and
+   wire engines of the reference's tiny config, and one Track-B step of
+   Qwen1.5-4B's smoke config — and ``run_ownership`` (three pipelined
+   runs), every report passing; the launch counters zeroed just before
+   the contracts and read just after: each of the three compression
+   kernels launched, exactly as the checked runs imply; then three
+   violations seeded here into the ragged engine's chunk step, each of
+   which exactly its own contract must flag: an f64 op, an extra
+   ``.item()`` (the sync contract names this file's line), and the pool
+   reallocated in place of written;
 8. train path: Track-B training of Qwen1.5-4B at full width (bf16, 3.95 B
    parameters, random weights from a seeded generator) as
    ``python -m repro_torch.launch.train`` runs it: batch 8, seq 128, τ 1,
@@ -202,7 +217,7 @@ Phases, each of which fails the script on any error:
    of the meshless composition pod by pod on the card; (b) Qwen1.5-4B at
    full width and 4 layers on (2, 2, 1) with error feedback and (c)
    Llama-4-Scout at full width and depth 1 on (1, 2, 2) without error
-   feedback, 3 steps each through ``train.run`` — per rank the histogram twice and compress and
+   feedback, 2 steps each through ``train.run`` — per rank the histogram twice and compress and
    recover once per leaf shard and step at one row (shard widths checked
    in phase 3c), losses finite and the same on every rank, every shard's
    replicas bit-identical after every step, every expert shard under
@@ -296,6 +311,7 @@ PROFILE_STEPS = 10               # decode steps in the serve profile window
 # into a cache of LONG_CACHE, filled from a seeded generator
 LONG_CACHE, LONG_START, LONG_STEPS = 4096, 4000, 10
 KERNEL_ONLY_CALLS = 10           # calls in each kernel_only_ms window
+WINDOW_ATTEMPTS = 3              # runs of a timing window the host stalled
 PROFILE_ATTEMPTS = 5             # runs of a profiled window that records nothing
 LOST_EVENT_ATTEMPTS = 2          # runs of a kernel_only window short of a record
 PROFILE_PAD_S = 0.05             # host time around a profiled window's launches
@@ -315,10 +331,12 @@ class _Timer:
     kernel keeps the card busy long enough for the host to enqueue the
     whole window — so host dispatch never leaks into the measurement. A
     flush-only window follows each one; the result is the median over
-    ``windows`` pairs of (window − flush-only window) / iters."""
+    ``windows`` pairs of (window − flush-only window) / iters. A window
+    whose enqueueing outlasted the lead (a host stall: the card may have
+    idled inside it) is run again, up to WINDOW_ATTEMPTS times."""
 
-    def __init__(self, torch, flush, windows: int = 21, iters: int = 10,
-                 lead_ms: float = 50.0):
+    def __init__(self, torch, flush, windows: int = 11, iters: int = 10,
+                 lead_ms: float = 20.0):
         self.torch, self.flush = torch, flush
         self.windows, self.iters, self.lead_ms = windows, iters, lead_ms
         probe = 10_000_000
@@ -334,20 +352,23 @@ class _Timer:
         return ev(enable_timing=True), ev(enable_timing=True)
 
     def _window(self, fn) -> float:
-        a, b = self._events()
-        self.torch.cuda._sleep(self.cycles)
-        t0 = time.perf_counter()
-        a.record()
-        for _ in range(self.iters):
-            self.flush.zero_()
-            if fn is not None:
-                fn()
-        b.record()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        b.synchronize()
-        check(host_ms < self.lead_ms, f"the host took {host_ms:.1f} ms to "
-              "enqueue one timing window; the card may have idled")
-        return a.elapsed_time(b)
+        for _ in range(WINDOW_ATTEMPTS):
+            a, b = self._events()
+            self.torch.cuda._sleep(self.cycles)
+            t0 = time.perf_counter()
+            a.record()
+            for _ in range(self.iters):
+                self.flush.zero_()
+                if fn is not None:
+                    fn()
+            b.record()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            b.synchronize()
+            if host_ms < self.lead_ms:
+                return a.elapsed_time(b)
+        raise RuntimeError(f"the host took {host_ms:.1f} ms to enqueue one "
+                           f"timing window, {WINDOW_ATTEMPTS} times running; "
+                           "the card may have idled")
 
     def ms(self, fn) -> float:
         for _ in range(3):
@@ -378,17 +399,33 @@ def _union_s(spans) -> float:
     return total / 1e6
 
 
+@dataclasses.dataclass
+class _DeviceEvents:
+    """The CUDA events of one name in a profiled window: how many ran and
+    their summed device microseconds (the fields of a row of torch's
+    ``key_averages()`` that this script reads)."""
+    key: str
+    count: int = 0
+    self_device_time_total: float = 0.0
+
+
 def _profile_once(torch, run, pad_s: float):
     """torch.profiler over ``run()``, CUDA activity only (CPU operator
     events would only slow the trace), with ``pad_s`` seconds of host time
     before the first launch and after the last kernel ends: without them
     the tracer now and then delivers none of a short window's kernels
     (seen on the H100 after the timer's windows, with the tracer slow to
-    start). Returns the averages, the per-name CUDA events (kernels,
-    memsets, copies) among them, and the window: the host seconds of
-    ``run()`` under the profiler and the seconds in which at least one
-    CUDA event ran (``busy_s``, the union of their intervals)."""
+    start). The trace's raw events are summed by name here: torch's
+    ``key_averages()`` builds an object tree of every event first, which
+    took 5.9–6.4 s for a window of 30,000 kernels against 0.7–0.8 s to
+    read and walk the raw events (H100 host, tools/probe_profiler.py),
+    and a dense HAR round's profile ~15 s. Returns the per-name CUDA
+    events (kernels, memsets, copies; not user annotations), sorted by
+    device time, and the window: the host seconds of ``run()`` under the
+    profiler and the seconds in which at least one CUDA event ran
+    (``busy_s``, the union of their intervals)."""
     from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -398,14 +435,33 @@ def _profile_once(torch, run, pad_s: float):
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         time.sleep(pad_s)
-    averages = prof.key_averages()
-    spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events()
-             if ev.device_type == DeviceType.CUDA
-             and not getattr(ev, "is_user_annotation", False)]
-    return averages, [ev for ev in averages
-                      if ev.device_type == DeviceType.CUDA
-                      and not getattr(ev, "is_user_annotation", False)], {
-        "profiled_run_s": run_s, "busy_s": _union_s(spans)}
+    by_name, spans = {}, []
+    for ev in prof.profiler.kineto_results.events():
+        if (ev.device_type() != DeviceType.CUDA or ev.is_user_annotation()
+                or ev.is_hidden_event() or _filter_name(ev.name())):
+            continue
+        start, end = ev.start_ns() / 1e3, ev.end_ns() / 1e3
+        spans.append((start, end))
+        name = _rewrite_name(name=ev.name(), with_wildcard=True)
+        row = by_name.setdefault(name, _DeviceEvents(name))
+        row.count += 1
+        row.self_device_time_total += end - start
+    events = sorted(by_name.values(), reverse=True,
+                    key=lambda ev: ev.self_device_time_total)
+    return events, {"profiled_run_s": run_s, "busy_s": _union_s(spans)}
+
+
+def _event_table(events) -> str:
+    """A profiled window's CUDA events as a text table, by device time."""
+    total = sum(ev.self_device_time_total for ev in events) or 1.0
+    lines = [f"{'name':<100} {'calls':>8} {'device ms':>12} "
+             f"{'us/call':>10} {'share':>7}"]
+    for ev in events[:40]:
+        lines.append(f"{ev.key[:100]:<100} {ev.count:>8} "
+                     f"{ev.self_device_time_total / 1e3:>12.3f} "
+                     f"{ev.self_device_time_total / ev.count:>10.2f} "
+                     f"{ev.self_device_time_total / total:>7.1%}")
+    return "\n".join(lines) + "\n"
 
 
 def _cuda_events(torch, run, table_name: str | None = None,
@@ -416,8 +472,7 @@ def _cuda_events(torch, run, table_name: str | None = None,
     OUT_DIR/<table_name> if given; ``window``, if given, gets the
     window's host seconds and union of device intervals."""
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        averages, events, win = _profile_once(torch, run,
-                                              PROFILE_PAD_S * attempt)
+        events, win = _profile_once(torch, run, PROFILE_PAD_S * attempt)
         if events:
             break
         print(f"note: the profiler recorded no CUDA kernel (attempt "
@@ -427,8 +482,7 @@ def _cuda_events(torch, run, table_name: str | None = None,
     if table_name:
         os.makedirs(OUT_DIR, exist_ok=True)
         with open(os.path.join(OUT_DIR, table_name), "w") as f:
-            f.write(averages.table(sort_by="self_device_time_total",
-                                   row_limit=40))
+            f.write(_event_table(events))
     if window is not None:
         window.update(win)
     return events
@@ -1466,8 +1520,7 @@ def _profile_kernels(torch, fn, table_name):
     total device seconds, and the window (`_profile_once`); the table goes
     to OUT_DIR/<table_name>."""
     window = {}
-    kernels = sorted(_cuda_events(torch, fn, table_name, window),
-                     key=lambda ev: ev.self_device_time_total, reverse=True)
+    kernels = _cuda_events(torch, fn, table_name, window)
     return (kernels, sum(ev.self_device_time_total for ev in kernels) / 1e6,
             window)
 
@@ -2173,8 +2226,9 @@ FAMILY_REL_L2 = SERVE_REL_L2
 F32_COPY_MAX_BYTES = 30 * 2**30
 PROFILED_SERVE, PROFILED_TRAIN = "serve_llama4", "train_zamba2"
 DEEPSEEK_PARITY_STEPS, DEEPSEEK_PARITY_BATCH, DEEPSEEK_PARITY_SEQ = 3, 4, 64
-# phase 3c times a width narrower than phases 8 and 9 use only from here
-TRACK_B_TIMED_MIN = 100_000_000
+# phase 3c times a width that phases 8 and 9 do not use only from here:
+# Llama-4-Scout's embedding, 1,034,485,760 elements, the widest
+TRACK_B_TIMED_MIN = 1_000_000_000
 # the example's size (qwen-115m, f32): cuda vs cpu steps, then the
 # learnable stream with a checkpoint
 EXAMPLE_PARITY_STEPS, EXAMPLE_PARITY_BATCH, EXAMPLE_PARITY_SEQ = 3, 4, 128
@@ -2218,8 +2272,9 @@ def phase_track_b_kernels(torch, K, timer):
     versions (Σ|x| within SUM_RTOL), and, at the widths of phases 8 and 9
     and every width of at least TRACK_B_TIMED_MIN elements, one CUDA
     kernel per call and timed as in phase 3 (compress also on x per row,
-    the train step's call). A narrower width is checked and not timed:
-    a profiled window costs about a second, and there are some forty."""
+    the train step's call). Another width is checked and not timed: the
+    timings of one width of 10^8 elements or more take about 8 s, and
+    there are some twenty such widths among the 68."""
     cfgs = _track_b_configs()
     timed = set(_leaf_sizes(cfgs[TRAIN_ARCH])) | set(
         _leaf_sizes(cfgs["example"]))
@@ -2488,6 +2543,81 @@ class _FiniteOutputs:
     def __exit__(self, *exc):
         for k, fn in self._orig.items():
             setattr(self.C, k, fn)
+
+
+def _seeded(torch, what):
+    """A patch for the contracts' runs that seeds one violation into the
+    ragged engine's chunk step (after its real work)."""
+    def patch(sim, patches):
+        def make(orig):
+            def chunk(store, *args, **kwargs):
+                out = orig(store, *args, **kwargs)
+                if what == "f64":
+                    store.pool.to(torch.float64)
+                elif what == "sync":
+                    out[0].sum().item()
+                else:
+                    store.pool = store.pool.clone()
+                return out
+            return chunk
+        patches.wrap(sim.executor, "_tier_chunk_defer", make)
+    return patch
+
+
+ANALYSIS_KERNELS = ("magnitude_histogram", "hybrid_compress", "recover")
+
+
+def phase_analysis(torch, K) -> dict:
+    """Phase 6g: the port's invariant checker on the card (see the module
+    docstring): every contract and audit passes, kernels 1-3 launched as
+    the checked runs imply, each seeded violation flagged by its own
+    contract and by no other."""
+    from repro_torch.analysis import contracts as AC
+    from repro_torch.analysis.ownership import run_ownership
+    out = {}
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    reports = AC.run_contracts(device="cuda")
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    out["contracts_s"] = time.perf_counter() - t0
+    for r in reports:
+        print(f"analysis: {r}")
+    bad = [str(r) for r in reports if not r.ok]
+    check(not bad, "analysis contracts failed on the card: " + "; ".join(bad))
+    implied = {k: sum(r.launches[k] for r in reports if r.launches)
+               for k in ANALYSIS_KERNELS}
+    out["launches"] = {k: counts[k] for k in ANALYSIS_KERNELS}
+    for k in ANALYSIS_KERNELS:
+        check(counts[k] > 0, f"analysis: {k} never launched")
+        check(counts[k] == implied[k], f"analysis: {k} launched "
+              f"{counts[k]} times, the checked runs imply {implied[k]}")
+    out["contracts"] = [str(r) for r in reports]
+    t0 = time.perf_counter()
+    own = run_ownership(device="cuda")
+    out["ownership_s"] = time.perf_counter() - t0
+    for r in own:
+        print(f"analysis: {r}")
+    bad = [str(r) for r in own if not r.ok]
+    check(not bad, "ownership audit failed on the card: " + "; ".join(bad))
+    out["ownership"] = [str(r) for r in own]
+    t0 = time.perf_counter()
+    want = {"f64": ("no-f64", "float64"),
+            "sync": ("no-stray-sync", "chip_smoke.py"),
+            "realloc": ("in-place", "reallocated")}
+    seeded = {}
+    for what, (contract, word) in want.items():
+        reps = AC.verify_round_engine(True, "cuda", patch=_seeded(torch, what))
+        failed = {r.name.split("[")[0]: r for r in reps if not r.ok}
+        check(list(failed) == [contract] and word in failed[contract].detail,
+              f"analysis: the seeded {what} violation should fail exactly "
+              f"{contract}, naming {word!r}; failed: "
+              + "; ".join(str(r) for r in failed.values()))
+        seeded[what] = str(failed[contract])
+        print(f"analysis: seeded {what}: {failed[contract]}")
+    out["seeded"] = seeded
+    out["seeded_s"] = time.perf_counter() - t0
+    return out
 
 
 def phase_train(torch, K, checked_sizes):
@@ -3255,7 +3385,7 @@ POD_FULL = {
                  ["--error-feedback"]),
     "pod_llama4": ("llama4-scout-17b-a16e", 1, (1, 2, 2), []),
 }
-POD_STEPS = 3
+POD_STEPS = 2
 POD_TRAIN_ARGS = ["--steps", str(POD_STEPS), "--batch", "8", "--seq", "128",
                   "--tau", "1", "--theta-u", "0.35", "--theta-d-max", "0.6",
                   "--seed", "0"]
@@ -4112,7 +4242,7 @@ def main() -> int:
     _scratch_zeroed(torch, build, "the kernels phase")
     # the schemes path's shapes: ResNet-18 (rungs 8 and 2 run there) and
     # cnn_cifar, the chunk 8 of both; x per row is ProWD's upload
-    wide_timer = _Timer(torch, flush, windows=11)
+    wide_timer = _Timer(torch, flush)
     wres = timed("kernels_resnet18", phase_kernels, torch, K, wide_timer,
                  RESNET_PARAMS, (1, 2, 4, 8), (1, 8), (2, 8))
     _scratch_zeroed(torch, build, "the kernels phase at n = 11,164,362")
@@ -4120,9 +4250,9 @@ def main() -> int:
                  CIFAR_PARAMS, (2, 8), (1, 8), (8,))
     _scratch_zeroed(torch, build, "the kernels phase at n = 699,066")
     dres = timed("decode_kernel", phase_decode, torch,
-                 _Timer(torch, flush, windows=11))
+                 _Timer(torch, flush))
     lse_res = timed("decode_lse", _lse_mode, torch,
-                    _Timer(torch, flush, windows=11))
+                    _Timer(torch, flush))
     _scratch_zeroed(torch, build, "the decode kernel phases")
     tb_sizes, tbres = timed("track_b_kernels", phase_track_b_kernels, torch,
                             K, _Timer(torch, flush, **TRACK_B_TIMER))
@@ -4156,6 +4286,7 @@ def main() -> int:
     resume = timed("resume", phase_resume, torch, SimConfig, Simulator,
                    CaesarConfig, cfg, twins)
     del twins
+    analysis = timed("analysis", phase_analysis, torch, K)
     serve_counts, serve = timed("serve_path", phase_serve, torch, K)
     train_out = timed("train_path", phase_train, torch, K, tb_sizes)
     example = timed("train_example", phase_train_example, torch, K, tb_sizes)
@@ -4206,6 +4337,7 @@ def main() -> int:
                 if "launches" in v},
             "launches_capped_path": {k: v[name]
                                      for k, v in capped_launches.items()},
+            "launches_analysis": analysis["launches"][name],
             "track_b": {f"[1, {n}]{how}": {
                 k: tbres[n][(key, 1)][k] for k in (
                     "ms", "kernel_only_ms", "bound_ms", "plain_ms",
@@ -4271,6 +4403,7 @@ def main() -> int:
                        f"{k[0]}[1, {n}]": v for n, r in tbres.items()
                        for k, v in r.items()},
                    "capped_store": capped, "resume": resume,
+                   "analysis": analysis,
                    "train_path": train_out, "train_example": example,
                    "serve_families": serve_fam,
                    "train_families": train_fam, "pod_mesh": pod,

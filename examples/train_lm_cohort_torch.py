@@ -89,8 +89,9 @@ def main(argv=None):
         state, m = step_fn(state, batch_at(rng, t, args.batch, args.seq,
                                            cfg.vocab, dev))
         if t % 20 == 0 or t == args.steps - 1:
-            # logging boundary, every 20 steps
-            print(f"step {t:4d} loss={float(m['loss']):.4f} "
+            # logging boundary, every 20 steps: the read waits for the step
+            loss = float(m["loss"])  # repro: noqa=REP006
+            print(f"step {t:4d} loss={loss:.4f} "
                   f"({time.time() - t0:.0f}s)", flush=True)
         if (t + 1) % 100 == 0:
             mgr.save(state, t + 1)

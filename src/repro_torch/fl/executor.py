@@ -309,9 +309,9 @@ class RoundExecutor:
         so unchanged). Returns the raw uploads [c, n_params] for the fold."""
         # slots → rows of this rank's segments; the pad slot (capacity)
         # clamps to the last owned row, gathered but never written
-        idx = torch.from_numpy(np.minimum(
+        idx = MESH.to_device(torch.from_numpy(np.minimum(
             slots.astype(np.int64) - store.row0,
-            store.pool.shape[0] - 1)).to(self.device)
+            store.pool.shape[0] - 1)), self.device)
         local = store.pool.index_select(0, idx).to(torch.float32)
         ef = store.ef_pool.index_select(0, idx) if self.use_ef else None
         ups, new_rows, new_ef, db, ub, gn = self.participant_round(
@@ -404,7 +404,8 @@ class RoundExecutor:
                     tu=tu)
 
     def _dev(self, a: np.ndarray, dtype=None) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        t = MESH.to_device(torch.from_numpy(np.ascontiguousarray(a)),
+                           self.device)
         return t if dtype is None else t.to(dtype)
 
     def _run_chunk(self, store, global_f, g_cdf, g_max, a: dict, v: int, lr,
@@ -483,7 +484,7 @@ class RoundExecutor:
         slots32 = self._resolve_slots(store, parts, t)
         up_sum = torch.zeros(self.spec.n_params, dtype=torch.float32,
                              device=self.device)
-        lr = lr.to(self.device)
+        lr = MESH.to_device(lr, self.device)
         pend = []
         for by_rank, c, pm, ups, outs in self._tier_stream(
                 global_f, store, slots32, tiers, lr, theta_d, theta_u, t):
@@ -517,7 +518,7 @@ class RoundExecutor:
         wm = (np.ones(n, np.float32) if wmask is None
               else np.asarray(wmask, np.float32))
         slots32 = self._resolve_slots(store, parts, t)
-        lr = lr.to(self.device)
+        lr = MESH.to_device(lr, self.device)
         chunks, pend = [], []
         for by_rank, c, _pm, ups, outs in self._tier_stream(
                 global_f, store, slots32, tiers, lr, theta_d, theta_u, t,
@@ -539,7 +540,7 @@ class RoundExecutor:
         g_cdf, g_max = self._hist(global_f)
         up_sum = torch.zeros(self.spec.n_params, dtype=torch.float32,
                              device=self.device)
-        lr = lr.to(self.device)
+        lr = MESH.to_device(lr, self.device)
         # each shard's participants in parts order (stratified draws come
         # shard-major, so these are contiguous runs of parts)
         order = np.argsort(np.asarray(parts) // self.rows_per_shard,

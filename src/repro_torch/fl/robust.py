@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.fl import wire as W
+from repro_torch.launch import mesh as MESH
 
 AGGREGATIONS = ("mean", "trimmed_mean", "norm_clip", "median", "krum")
 
@@ -69,8 +70,8 @@ class MeanAggregator:
         self.device = torch.device(device)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
-            self.device)
+        return MESH.to_device(torch.from_numpy(
+            np.ascontiguousarray(a, np.float32)), self.device)
 
     def init(self, n_params: int):
         return torch.zeros(n_params, dtype=torch.float32, device=self.device)

@@ -283,8 +283,8 @@ class ClientStateStore:
 
     def _rows(self, slots) -> torch.Tensor:
         """Device row indices of owned ``slots`` in the pool tensor."""
-        return torch.from_numpy(np.asarray(slots, np.int64)
-                                - self.row0).to(self.device)
+        return MESH.to_device(torch.from_numpy(
+            np.asarray(slots, np.int64) - self.row0), self.device)
 
     def _init_pool(self):
         cap, w = self.capacity, self.n_params
@@ -435,11 +435,13 @@ class ClientStateStore:
         per_rank = MESH.fetch_global(mine, self.layout)
         holder = slots // (self.n_owned * self.cap_per_shard)
         out = np.empty((len(slots), pool.shape[1]), np.float32)
+        # the rows go to the host by design (a spill or a checkpoint): one
+        # copy of each rank's part
         for r, got in enumerate(per_rank):
             at = np.flatnonzero(holder == r)
             if len(at):
-                out[at] = got[torch.from_numpy(at).to(got.device)].cpu(
-                ).numpy()
+                out[at] = got[torch.from_numpy(at).to(  # repro: noqa=REP006
+                    got.device)].cpu().numpy()
         return out
 
     def _restore(self, clients: np.ndarray, slots: np.ndarray):
@@ -481,7 +483,8 @@ class ClientStateStore:
         host_rows = [host_rows[j] for j in kept]
         host_efs = [host_efs[j] for j in kept]
         if host_i:
-            rows = torch.from_numpy(np.stack(host_rows)).to(self.device)
+            rows = MESH.to_device(torch.from_numpy(np.stack(host_rows)),
+                                  self.device)
             self.pool.index_copy_(0, self._rows(slots[host_i]),
                                   rows.to(self.dtype))
         if self.ef_width and own.any():
@@ -491,8 +494,8 @@ class ClientStateStore:
             if off:
                 self.ef_pool.index_copy_(
                     0, self._rows(slots[[i for i, _ in off]]),
-                    torch.from_numpy(np.stack([e for _, e in off])).to(
-                        self.device))
+                    MESH.to_device(torch.from_numpy(
+                        np.stack([e for _, e in off])), self.device))
         self.slot_of[clients] = slots
         self.client_of[slots] = clients
 

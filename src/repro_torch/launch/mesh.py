@@ -135,6 +135,17 @@ def rank_device(device, local_rank: int) -> torch.device:
     return dev
 
 
+def to_device(x: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device`` without making the host wait for the
+    card: a blocking copy from pageable memory synchronizes the stream
+    first, so onto a card the copy is staged in page-locked memory and
+    enqueued behind the work already queued. Anything else is ``x.to``."""
+    device = torch.device(device)
+    if device.type != "cuda" or x.device.type != "cpu":
+        return x.to(device)
+    return x.pin_memory().to(device, non_blocking=True)
+
+
 def make_data_group(device="cuda") -> DataGroup:
     """The shard layout of this process: the process group's rank and world
     size when one is up, else a world of 1; the device from

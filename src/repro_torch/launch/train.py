@@ -172,7 +172,7 @@ def run(args, log: Callable[[str], None] = print, cfg=None,
         state, metrics = step_fn(state, batch)
         # the per-step loss print is this launcher's logging cadence: the
         # read waits for the step
-        loss = float(metrics["loss"])
+        loss = float(metrics["loss"])  # repro: noqa=REP006
         walls.append(time.perf_counter() - t0)
         losses.append(loss)
         if on_step is not None:
