@@ -245,7 +245,25 @@ Phases, each of which fails the script on any error:
    5e-2, ranks of a data block bit-identical, (f) the kernel launched
    once per attention layer and step on every rank and its plain version
    never; ms per step (the slowest rank), tokens/s, peak memory and
-   cache bytes per rank.
+   cache bytes per rank;
+13. census: `launch.dryrun`'s per-rank census on meta tensors, run in a
+   worker process on the host from the end of the build (it needs no
+   card), held to the card: phase 11(b)'s second step on each rank (its
+   collectives in order with their group sizes and bytes, the
+   parameter and state bytes it holds, equal; the census's peak within
+   10% of `torch.cuda.max_memory_allocated` after a reset of the peak)
+   and phase 12(a)'s first decode step (collectives, parameter and cache
+   bytes equal, peak within 10%); (c) printed beside its census. Then
+   the census alone of Qwen1.5-4B `train_4k` on (16, 16), Qwen1.5-4B on
+   (2, 2, 1) at 8 and 12 layers as phase 11 runs it (four ranks' peaks
+   against the card's memory), and DeepSeek-V3 `train_4k` and
+   `decode_32k` on (16, 16) and (2, 16, 16);
+14. exact operators: `core.compression`'s exact-quantile operators
+   (`magnitude_threshold`, `compress_mask`, `hybrid_compress`/`recover`,
+   `topk_sparsify`, the tree wrappers, `ef_compress`), cuda against cpu,
+   bit-equal at n = 164,134 and at 2^25 + 3 (past torch.quantile's 2^24
+   limit; the cpu side there in the census worker), mean_abs within
+   rtol 1e-5.
 
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. It exits non-zero without a CUDA device
@@ -256,6 +274,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import subprocess
@@ -3468,11 +3487,24 @@ def _pod_full_rank(torch, K, D, M, train, arch, layers, flags,
     cfg = _family_cfg(arch, layers)
     args = train.parser().parse_args(POD_TRAIN_ARGS + ["--arch", arch]
                                      + flags)
-    prints = []
+    prints, census, calls, undo = [], {}, [], []
 
     def on_step(t, state, loss):
+        # the second step is held to the census (launch.dryrun): its
+        # collectives, the state it leaves and its peak memory
+        if t == 1:
+            torch.cuda.synchronize()
+            census["peak_bytes"] = torch.cuda.max_memory_allocated()
+            undo.pop()()
+            census["calls"] = list(calls)
+            census["held"] = _held_bytes(D, state)
         prints.append(torch.stack([_fingerprint(torch, x) for x in
                                    D.tree_leaves(state.params)]).cpu())
+        if t == 0:
+            torch.cuda.synchronize()
+            census["peak_before"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            undo.append(_count_collectives(calls))
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3495,7 +3527,9 @@ def _pod_full_rank(torch, K, D, M, train, arch, layers, flags,
            "local_params": sum(x.numel() for x in leaves),
            "expert_shard_numel": expert, "fingerprints": prints,
            "finite": all(bool(torch.isfinite(x).all()) for x in leaves),
-           "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "census_step": census,
+           "peak_gb": max(census.get("peak_before", 0),
+                          torch.cuda.max_memory_allocated()) / 2**30,
            "reserved_gb": torch.cuda.max_memory_reserved() / 2**30,
            "params": sum(x.numel() for x in D.tree_leaves(
                M.init_abstract(cfg))), "n_layers": cfg.n_layers}
@@ -3688,7 +3722,9 @@ def _pod_full_checks(torch, name, ranks, checked_sizes, full) -> dict:
         "peak_gb_per_rank": [res[name]["peak_gb"] for res in ranks],
         "reserved_gb_per_rank": [res[name]["reserved_gb"] for res in ranks],
         "expert_shard_numel": r0["expert_shard_numel"],
-        "launches_per_rank": [res[name]["launches"] for res in ranks]}
+        "launches_per_rank": [res[name]["launches"] for res in ranks],
+        "census_step_per_rank": [res[name]["census_step"]
+                                 for res in ranks]}
 
 
 def phase_pod_mesh(torch, checked_sizes, full=None) -> dict:
@@ -3760,6 +3796,8 @@ SERVE_MESH = {
                                steps=2, seed=1),
 }
 SERVE_MESH_LOCAL_STEPS = 3       # (d): the (1, 1) mesh against mesh=None
+SERVE_MESH_CENSUS = ("serve_mesh_qwen_batch",)   # its first decode step is
+                                                 # held to the census
 # (e): kernel 4's lse mode at each point's per-rank shapes: (B, H, Hkv, D,
 # S_loc, lengths to check, lengths timed)
 LSE_SHAPES = {
@@ -3788,7 +3826,7 @@ def _serve_rows(torch, b: int, mesh) -> slice:
 
 
 def _serve_mesh_steps(torch, pt, cfg, params, mesh, tokens, dev,
-                      steps=None) -> dict:
+                      steps=None, census_step=None) -> dict:
     """One point through the port's serve entry points: a cache seeded
     from ``pt["seed"]`` at its first ``start`` positions (this rank's
     shards of it under ``mesh``, `launch.specs.shard_cache`), ``steps``
@@ -3797,7 +3835,8 @@ def _serve_mesh_steps(torch, pt, cfg, params, mesh, tokens, dev,
     prompt of more than one token; the decode kernel's launches counted
     over the steps, the host clock per step (ending at a sync), the
     written positions of the gathered cache and whether the seeded ones
-    kept their bits."""
+    kept their bits. Step ``census_step`` (on the card) is held to the
+    census: its collectives and its peak memory."""
     from repro_torch.fl import distributed as D
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import specs as SP
@@ -3821,14 +3860,23 @@ def _serve_mesh_steps(torch, pt, cfg, params, mesh, tokens, dev,
     length = torch.full((b,), start, dtype=torch.int32, device=dev)[rows]
     tok = prompt[:, :1] if tokens is None else tokens[0]
     logits, fed, walls = [], [], []
+    census, calls = {}, []
     _sync(torch, dev)
     FA.decode_attention.launches = 0
     with torch.no_grad():
         for i in range(steps):
+            if i == census_step:
+                census["peak_before"] = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                undo = _count_collectives(calls)
             t0 = time.perf_counter()
             lg, cache = step(params, cache, tok[rows], length)
             _sync(torch, dev)
             walls.append(time.perf_counter() - t0)
+            if i == census_step:
+                census.update(calls=calls,
+                              peak_bytes=torch.cuda.max_memory_allocated())
+                undo()
             logits.append(lg.float().cpu())
             fed.append(tok.cpu())
             length = length + 1
@@ -3851,7 +3899,8 @@ def _serve_mesh_steps(torch, pt, cfg, params, mesh, tokens, dev,
     return {"logits": torch.stack(logits), "tokens": torch.stack(fed),
             "walls_s": walls, "launches": launches, "prefill": prefill,
             "written": written, "seeded_untouched": untouched,
-            "cache_bytes": cache_bytes, "rows": (rows.start, rows.stop)}
+            "cache_bytes": cache_bytes, "rows": (rows.start, rows.stop),
+            "census_step": census or None}
 
 
 def _sync(torch, dev) -> None:
@@ -3902,12 +3951,17 @@ def _serve_mesh_rank(rank, world, store, out_dir, points, feed_path, dev):
         params = M.init_params(cfg, torch.Generator(
             device=mesh.device).manual_seed(pt["seed"]), mesh.device)
         params = SH.shard_tree(params, M.param_specs(cfg, mesh), mesh)
-        res = _serve_mesh_steps(torch, pt, cfg, params, mesh,
-                                feed[name].to(mesh.device), mesh.device)
+        res = _serve_mesh_steps(
+            torch, pt, cfg, params, mesh, feed[name].to(mesh.device),
+            mesh.device, census_step=0 if name in SERVE_MESH_CENSUS
+            and mesh.device.type == "cuda" else None)
         res.update(coords=mesh.coords, plain_calls=plain["calls"],
-                   local_params=sum(x.numel() for x in D.tree_leaves(params)))
+                   local_params=sum(x.numel() for x in D.tree_leaves(params)),
+                   params_bytes=sum(x.numel() * x.element_size()
+                                    for x in D.tree_leaves(params)))
         if mesh.device.type == "cuda":
-            res["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+            res["peak_gb"] = max((res["census_step"] or {}).get(
+                "peak_before", 0), torch.cuda.max_memory_allocated()) / 2**30
         if mesh.rank != 0:
             res["written"] = None       # rank 0's gathered cache suffices
         out[name] = res
@@ -4109,7 +4163,11 @@ def _serve_mesh_gates(torch, name, pt, base, ranks, smi) -> dict:
             "peak_gb_per_rank": [res.get("peak_gb") for res in ranks],
             "cache_bytes_per_rank": [res["cache_bytes"] for res in ranks],
             "cache_bytes_whole": whole,
-            "local_params_per_rank": [res["local_params"] for res in ranks]}
+            "local_params_per_rank": [res["local_params"] for res in ranks],
+            "census_step_per_rank": [
+                None if res["census_step"] is None else dict(
+                    res["census_step"], params_bytes=res["params_bytes"],
+                    cache_bytes=res["cache_bytes"]) for res in ranks]}
 
 
 def phase_serve_mesh(torch, smi) -> dict:
@@ -4181,6 +4239,347 @@ def phase_serve_mesh(torch, smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the per-rank census on meta (`launch.dryrun`) held to phases
+# 11(b) and 12(a), and its host-only production cells; phase 14: the
+# exact-quantile operators of `core.compression`, cuda against cpu
+# ---------------------------------------------------------------------------
+
+CENSUS_PEAK_RTOL = 0.10          # census peak_bytes against max_memory_allocated
+CENSUS_JOIN_S = 600.0            # the worker's wait once phase 12 is done
+POD_CELL = dict(kind="train", seq=128, batch=8)    # POD_TRAIN_ARGS' shapes
+# phase 13's cells, census only: (arch, depth, cell, mesh shape, axis
+# names, DistConfig fields). Qwen1.5-4B on phase 11's (2, 2, 1) at 8
+# layers (which fit four ranks on the card) and 12 (which did not)
+CENSUS_CELLS = {
+    "qwen_train_4k_pod16x16": ("qwen1.5-4b", None, "train_4k", (16, 16),
+                               ("data", "model"), {}),
+    "qwen_221_L8": ("qwen1.5-4b", 8, POD_CELL, (2, 2, 1), POD_NAMES,
+                    {"use_error_feedback": True}),
+    "qwen_221_L12": ("qwen1.5-4b", 12, POD_CELL, (2, 2, 1), POD_NAMES,
+                     {"use_error_feedback": True}),
+    "deepseek_train_4k_pod16x16": ("deepseek-v3-671b", None, "train_4k",
+                                   (16, 16), ("data", "model"), {}),
+    "deepseek_train_4k_pod2x16x16": ("deepseek-v3-671b", None, "train_4k",
+                                     (2, 16, 16), POD_NAMES, {}),
+    "deepseek_decode_32k_pod16x16": ("deepseek-v3-671b", None, "decode_32k",
+                                     (16, 16), ("data", "model"), {}),
+    "deepseek_decode_32k_pod2x16x16": ("deepseek-v3-671b", None,
+                                       "decode_32k", (2, 16, 16), POD_NAMES,
+                                       {}),
+}
+# phase 14: the operators at every ratio at n = EXACT_N[0]; past
+# torch.quantile's 2^24 limit, the thresholds at EXACT_BIG_RATIOS and the
+# operators at EXACT_BIG_OPS (the cpu side, ~6 s a sort, runs in the census
+# worker)
+EXACT_N = (164134, 2 ** 25 + 3)
+EXACT_RATIOS = (0.0, 0.05, 0.3, 0.5, 0.77, 0.999, 1.0)
+EXACT_BIG_RATIOS = (0.0, 0.3, 1.0)
+EXACT_BIG_OPS = 0.3
+EXACT_MEAN_RTOL = 1e-5           # Σ|x| summed in another order
+
+
+def _count_collectives(calls: list):
+    """Wrap `Mesh._parts` and `Mesh.max_axis` (class-wide, in this
+    process) so that every collective a mesh runs appends (op, group
+    size, operand bytes) to ``calls``, in the census's terms
+    (`launch.mesh.CollectiveCensus`); returns the undo."""
+    from repro_torch.launch import mesh as MESH
+    parts, mx = MESH.Mesh._parts, MESH.Mesh.max_axis
+
+    def _parts(self, x, axes):
+        out = parts(self, x, axes)
+        if len(out) > 1:
+            calls.append(("all-gather", len(out),
+                          x.numel() * x.element_size()))
+        return out
+
+    def max_axis(self, x, axes):
+        live = self.live_axes(axes)
+        if live:
+            calls.append(("all-reduce", self.size_over(live),
+                          x.numel() * x.element_size()))
+        return mx(self, x, axes)
+
+    MESH.Mesh._parts, MESH.Mesh.max_axis = _parts, max_axis
+
+    def undo():
+        MESH.Mesh._parts, MESH.Mesh.max_axis = parts, mx
+    return undo
+
+
+def _held_bytes(D, state) -> dict:
+    """Bytes of a TrainState's fields as a rank holds them."""
+    out = {}
+    for f in ("params", "prev_params", "ef", "step", "theta_d", "theta_u"):
+        v = getattr(state, f)
+        leaves = [] if v is None else ([v] if hasattr(v, "numel")
+                                       else D.tree_leaves(v))
+        out[f] = sum(x.numel() * x.element_size() for x in leaves)
+    return out
+
+
+def _census_jobs() -> dict:
+    """name: (arch, depth, cell, mesh shape, names, rank, DistConfig
+    fields) — every rank of phase 11's full-width points and of phase
+    12(a), then CENSUS_CELLS at rank 0."""
+    jobs = {}
+    for name, (arch, layers, shape, flags) in POD_FULL.items():
+        for r in range(math.prod(shape)):
+            jobs[f"{name}/rank{r}"] = (
+                arch, layers, POD_CELL, shape, POD_NAMES, r,
+                {"use_error_feedback": "--error-feedback" in flags})
+    for name in SERVE_MESH_CENSUS:
+        pt = SERVE_MESH[name]
+        for r in range(math.prod(pt["shape"])):
+            jobs[f"{name}/rank{r}"] = (
+                pt["arch"], pt["layers"], dict(
+                    kind="decode", seq=pt["seq"], batch=pt["batch"]),
+                pt["shape"], SERVE_MESH_NAMES, r, {})
+    for name, (arch, layers, cell, shape, names, dist) in \
+            CENSUS_CELLS.items():
+        jobs[name] = (arch, layers, cell, shape, names, 0, dist)
+    return jobs
+
+
+def _exact_input(n: int):
+    """Seeded heavy-tailed f32 (with exact zeros) and a stale copy."""
+    import numpy as np
+    rng = np.random.default_rng(n)
+    x = (rng.standard_normal(n, dtype=np.float32)
+         * np.exp(rng.standard_normal(n, dtype=np.float32)))
+    x[::13] = 0.0
+    local = x + rng.standard_normal(n, dtype=np.float32) * np.float32(0.3)
+    local[::17] = 0.0
+    return x, local
+
+
+def _digest(t) -> str:
+    """sha256 of a tensor's bytes (on the host)."""
+    import hashlib
+
+    import torch
+    t = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()
+
+
+def _exact_ops(torch, C, x, local, ratios, ops_ratios) -> dict:
+    """The exact operators on ``x`` (any device), as digests: the
+    thresholds' f32 bits at ``ratios``; at ``ops_ratios`` the mask, kept,
+    sign, max_abs and payload bits of hybrid_compress, mean_abs, top-k
+    and its bits, and the recovery (mean_abs given: the cpu's)."""
+    out = {}
+    for r in ratios:
+        thr = C.magnitude_threshold(x, r)
+        out[f"thr {r}"] = int(thr.view(torch.int32))
+    for r in ops_ratios:
+        c = C.hybrid_compress(x, r)
+        sp, bits = C.topk_sparsify(x, r)
+        out[f"ops {r}"] = {
+            "mask": _digest(c.mask), "kept": _digest(c.kept),
+            "sign": _digest(c.sign), "max_abs": int(c.max_abs.view(
+                torch.int32)), "payload_bits": int(c.payload_bits()),
+            "mean_abs": float(c.mean_abs), "topk": _digest(sp),
+            "topk_bits": int(bits)}
+        out[f"compressed {r}"] = c
+    return out
+
+
+def _census_worker(out_dir: str) -> None:
+    """Phase 13's worker, a process on the host beside the card's phases:
+    every `_census_jobs` job through `launch.dryrun.census` (records with
+    the ordered collective calls; the per-op lists dropped), then phase
+    14's cpu side at n = EXACT_N[1], written to out_dir as JSON."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    torch.set_num_threads(2)
+    from repro_torch.core import compression as C
+    from repro_torch.fl import distributed as D
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as MESH
+    out = {}
+    for name, (arch, layers, cell, shape, names, rank, dist) in \
+            _census_jobs().items():
+        cfg = _family_cfg(arch, layers)
+        mesh = MESH.census_mesh(shape, names, rank)
+        rec = DR.census(cfg, cell, mesh, D.DistConfig(**dist))
+        rec["calls"] = [[c["op"], c["group"], c["bytes"]]
+                        for c in mesh.census.calls]
+        for op in ("all-gather", "all-reduce"):
+            rec["collectives"][op].pop("ops")
+        out[name] = rec
+    with open(os.path.join(out_dir, "census.json"), "w") as f:
+        json.dump(out, f)
+    x, local = (torch.from_numpy(a) for a in _exact_input(EXACT_N[1]))
+    got = _exact_ops(torch, C, x, local, EXACT_BIG_RATIOS, (EXACT_BIG_OPS,))
+    c = got.pop(f"compressed {EXACT_BIG_OPS}")
+    got["recover"] = _digest(C.hybrid_recover(c, local))
+    with open(os.path.join(out_dir, "exact_cpu.json"), "w") as f:
+        json.dump(got, f)
+
+
+def _census_results(proc, out_dir: str) -> dict:
+    proc.join(CENSUS_JOIN_S)
+    check(not proc.is_alive(), f"the census worker ran past "
+          f"{CENSUS_JOIN_S} s after phase 12")
+    check(proc.exitcode == 0, f"the census worker failed ({proc.exitcode})")
+    with open(os.path.join(out_dir, "census.json")) as f:
+        census = json.load(f)
+    with open(os.path.join(out_dir, "exact_cpu.json")) as f:
+        exact = json.load(f)
+    return {"census": census, "exact_cpu": exact}
+
+
+def _census_gate(what, rec, meas, state: bool) -> dict:
+    """One rank's measured step against its census: the collectives in
+    order (op, group, bytes), the parameter and state (or cache) bytes,
+    and the peak within CENSUS_PEAK_RTOL of max_memory_allocated."""
+    got = [list(c) for c in meas["calls"]]
+    check(got == rec["calls"], f"{what}: the collectives measured "
+          f"({len(got)}) are not the census's ({len(rec['calls'])})")
+    rb = rec["rank_bytes"]
+    if state:
+        held = meas["held"]
+        check(held["params"] == rb["params"], f"{what}: params "
+              f"{held['params']} B, census {rb['params']}")
+        check(sum(held.values()) == rb["state"], f"{what}: state "
+              f"{sum(held.values())} B, census {rb['state']}")
+    else:
+        check(meas["params_bytes"] == rb["params"], f"{what}: params "
+              f"{meas['params_bytes']} B, census {rb['params']}")
+        check(meas["cache_bytes"] == rb["cache"], f"{what}: cache "
+              f"{meas['cache_bytes']} B, census {rb['cache']}")
+    peak, want = rec["memory"]["peak_bytes"], meas["peak_bytes"]
+    rel = (peak - want) / want
+    check(abs(rel) <= CENSUS_PEAK_RTOL, f"{what}: census peak {peak} B, "
+          f"measured {want} ({rel:+.3f})")
+    return {"collectives": len(got), "received": sum(
+        b * (g - 1) for _, g, b in got), "peak_census": peak,
+        "peak_measured": want, "peak_rel": rel,
+        "params_bytes": rb["params"], "state_bytes": rb["state"],
+        "cache_bytes": rb["cache"]}
+
+
+def _census_summary(rec) -> dict:
+    m = rec["memory"]
+    return {"peak_bytes": m["peak_bytes"],
+            "argument_bytes": m["argument_size_in_bytes"],
+            "temp_bytes": m["temp_size_in_bytes"],
+            "output_bytes": m["output_size_in_bytes"],
+            "flops": rec["flops"], "bytes_accessed": rec["bytes_accessed"],
+            "collectives": rec["collectives"]["total"],
+            "all_gather_received": rec["collectives"]["all-gather"][
+                "received"],
+            "rank_bytes": rec["rank_bytes"], "kernels": rec["kernels"],
+            "trace_s": rec["trace_s"]}
+
+
+def phase_census(torch, res, pod, serve_mesh, smi) -> dict:
+    """Phase 13: the census worker's records (`_census_worker`) against
+    phase 11(b)'s second step on every rank (`_census_gate`: collectives,
+    parameter and state bytes, peak) and phase 12(a)'s first decode step
+    (collectives, parameter and cache bytes, peak); phase 11(c) is
+    printed beside its census, not gated. Then the host-only cells of
+    CENSUS_CELLS, Qwen1.5-4B's (2, 2, 1) points as four ranks' peaks
+    against the card's memory."""
+    census = res["census"]
+    out = {"card": smi, "gated": {}, "reported": {}, "cells": {}}
+    for name in POD_FULL:
+        per = pod[name]["census_step_per_rank"]
+        for r, meas in enumerate(per):
+            rec = census[f"{name}/rank{r}"]
+            if name == "pod_qwen":
+                out["gated"][f"{name}/rank{r}"] = _census_gate(
+                    f"census {name} rank {r}", rec, meas, True)
+            else:
+                out["reported"][f"{name}/rank{r}"] = {
+                    "calls_equal": [list(c) for c in meas["calls"]]
+                    == rec["calls"],
+                    "peak_census": rec["memory"]["peak_bytes"],
+                    "peak_measured": meas["peak_bytes"],
+                    "held": meas["held"], "census": rec["rank_bytes"]}
+    for name in SERVE_MESH_CENSUS:
+        for r, meas in enumerate(serve_mesh[name]["census_step_per_rank"]):
+            out["gated"][f"{name}/rank{r}"] = _census_gate(
+                f"census {name} rank {r}", census[f"{name}/rank{r}"], meas,
+                False)
+    card = torch.cuda.get_device_properties(0).total_memory
+    for name in CENSUS_CELLS:
+        out["cells"][name] = _census_summary(census[name])
+        if name.startswith("qwen_221"):
+            four = 4 * census[name]["memory"]["peak_bytes"]
+            out["cells"][name].update(four_ranks_peak=four, card_bytes=card,
+                                      fits=four <= card)
+        print(f"census {name}: " + json.dumps(out["cells"][name]))
+    for k, v in list(out["gated"].items()) + list(out["reported"].items()):
+        print(f"census {k}: " + json.dumps(v))
+    return out
+
+
+def phase_exact(torch, res) -> dict:
+    """Phase 14: the exact-quantile operators of `core.compression`
+    (`torch.sort`, any size), cuda against cpu: at n = EXACT_N[0] every
+    operator at every ratio, bit-equal (mean_abs within EXACT_MEAN_RTOL;
+    the recovery with the cpu's mean_abs), the tree wrappers and error
+    feedback; at n = EXACT_N[1] (past torch.quantile's 2^24) the
+    thresholds and the operators against the census worker's cpu
+    digests."""
+    from repro_torch.core import compression as C
+    out = {}
+    for n in EXACT_N:
+        x, local = (torch.from_numpy(a) for a in _exact_input(n))
+        small = n == EXACT_N[0]
+        ratios = EXACT_RATIOS if small else EXACT_BIG_RATIOS
+        ops = EXACT_RATIOS if small else (EXACT_BIG_OPS,)
+        t0 = time.perf_counter()
+        cuda = _exact_ops(torch, C, x.cuda(), local.cuda(), ratios, ops)
+        torch.cuda.synchronize()
+        cuda_s = time.perf_counter() - t0
+        cpu = (_exact_ops(torch, C, x, local, ratios, ops) if small
+               else dict(res["exact_cpu"]))
+        for r in ops:
+            cc = cuda.pop(f"compressed {r}")
+            if small:
+                cp = cpu.pop(f"compressed {r}")
+                want = _digest(C.hybrid_recover(cp, local))
+                mean = cp.mean_abs
+            else:
+                want, mean = cpu.pop("recover"), torch.tensor(
+                    cpu[f"ops {r}"]["mean_abs"], dtype=torch.float32)
+            a, b = cuda[f"ops {r}"]["mean_abs"], cpu[f"ops {r}"]["mean_abs"]
+            check(abs(a - b) <= EXACT_MEAN_RTOL * abs(b), f"exact n={n} "
+                  f"r={r}: mean_abs {a} on the card, {b} on the cpu")
+            cuda[f"ops {r}"]["mean_abs"] = b
+            cc = dataclasses.replace(cc, mean_abs=mean.cuda())
+            check(_digest(C.hybrid_recover(cc, local.cuda())) == want,
+                  f"exact n={n} r={r}: the recovery differs")
+        for k, v in cpu.items():
+            check(cuda[k] == v, f"exact n={n}: {k} differs on the card")
+        out[n] = {"checked": sorted(cpu), "cuda_s": cuda_s}
+    # the tree wrappers and error feedback, over a tree with an empty
+    # subtree
+    g = torch.Generator().manual_seed(3)
+    tree = {"a": torch.randn(300, 7, generator=g), "e": None,
+            "m": {"b": torch.randn(1000, generator=g)}}
+    ef = {"a": torch.randn(300, 7, generator=g) * 0.1, "e": None,
+          "m": {"b": torch.randn(1000, generator=g) * 0.1}}
+    on = (lambda t: None if t is None else (
+        {k: on(v) for k, v in t.items()} if isinstance(t, dict)
+        else t.cuda()))
+    for fn, args in ((C.tree_topk_sparsify, (tree, 0.35)),
+                     (C.ef_compress, (tree, ef, 0.35))):
+        want = fn(*args)
+        got = fn(*(on(a) if isinstance(a, dict) else a for a in args))
+        flat = (lambda o: [t for t in C._tree_leaves(o) if t is not None]
+                if isinstance(o, dict) else [o])
+        for w, h in zip(want, got):
+            for a, b in zip(flat(w), flat(h)):
+                check(torch.equal(a, b.cpu()), f"exact {fn.__name__}: "
+                      "the card differs from the cpu")
+    print("exact operators: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4229,6 +4628,13 @@ def main() -> int:
                 print(f"ptxas {name} {entry}: {report}")
 
     phase_s = {"build": time.perf_counter() - t0}
+    # phase 13's census runs on the host beside the card's phases
+    census_dir = os.path.join(ROOT, "build", "census")
+    shutil.rmtree(census_dir, ignore_errors=True)
+    os.makedirs(census_dir)
+    census_proc = multiprocessing.get_context("spawn").Process(
+        target=_census_worker, args=(census_dir,), daemon=True)
+    census_proc.start()
 
     def timed(name, fn, *args):
         t = time.perf_counter()
@@ -4295,6 +4701,12 @@ def main() -> int:
                       tb_sizes)
     pod = timed("pod_mesh", phase_pod_mesh, torch, tb_sizes)
     serve_mesh = timed("serve_mesh", phase_serve_mesh, torch, smi)
+    census_res = timed("census_wait", _census_results, census_proc,
+                       census_dir)
+    census = timed("census", phase_census, torch, census_res, pod,
+                   serve_mesh, smi)
+    exact = timed("exact_operators", phase_exact, torch, census_res)
+    shutil.rmtree(census_dir, ignore_errors=True)
     _scratch_zeroed(torch, build, "the round, schemes, store, serve and "
                     "train paths")
 
@@ -4407,7 +4819,8 @@ def main() -> int:
                    "train_path": train_out, "train_example": example,
                    "serve_families": serve_fam,
                    "train_families": train_fam, "pod_mesh": pod,
-                   "serve_mesh": serve_mesh,
+                   "serve_mesh": serve_mesh, "census": census,
+                   "exact_operators": exact,
                    "phase_s": phase_s, "kernels": kernels},
                   f, indent=1)
     print(f"card: {smi}")

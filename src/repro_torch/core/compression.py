@@ -293,16 +293,28 @@ def topk_sparsify_at(g: torch.Tensor, thr: torch.Tensor
 # rank) the leaf is whole.
 # ---------------------------------------------------------------------------
 
+# the compress kernel counts its row's compressed set in int32 (and the
+# histogram each bin): a longer leaf row goes through the kernels in
+# pieces of at most this many elements (a multiple of 1024, so every piece
+# starts on a 16-byte boundary), combined as the shards of a group are
+_PIECE = 2 ** 31 - 2 ** 20
+
+
 def _leaf_row(x: torch.Tensor) -> torch.Tensor:
     """A leaf (or a leaf's shard) as one f32 row [1, numel]: the reference
     thresholds the whole leaf (its ``_bisect_threshold`` reshapes to
     [-1])."""
-    n = x.numel()
-    if n >= 2 ** 31:
-        # the compress kernel counts the compressed set in int32
-        raise ValueError(f"a leaf of {n} elements overflows the int32 count "
-                         "of the compressed set; shard it")
-    return x.reshape(1, n).to(torch.float32)
+    return x.reshape(1, x.numel()).to(torch.float32)
+
+
+def _pieces(xr: torch.Tensor) -> list:
+    """[1, n] as views [1, m] of at most `_PIECE` elements each."""
+    n = xr.shape[1]
+    if n <= _PIECE:
+        return [xr]
+    m = -(-n // -(-n // _PIECE))
+    m = -(-m // 1024) * 1024
+    return [xr[:, i:i + m] for i in range(0, n, m)]
 
 
 def _ratio_row(ratio, device) -> torch.Tensor:
@@ -313,11 +325,31 @@ def _split(group) -> bool:
     return group is not None and group.size > 1
 
 
+def _fold(xs: list) -> torch.Tensor:
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = acc + x
+    return acc
+
+
+def _max(xs: list) -> torch.Tensor:
+    return xs[0] if len(xs) == 1 else torch.amax(torch.stack(xs), dim=0)
+
+
 def _group_threshold(xr: torch.Tensor, ratio: torch.Tensor, group
                      ) -> torch.Tensor:
-    """`fused_threshold` of the whole leaf whose shard is ``xr`` [1, n]."""
-    max_abs = group.max(torch.linalg.vector_norm(xr, float("inf"), dim=-1))
-    hist = group.sum(_tt.magnitude_histogram(xr, max_abs).to(torch.int64))
+    """`fused_threshold` of the whole leaf whose shard is ``xr`` [1, n]
+    (its pieces' maxima and int64 histograms combined, then the shards',
+    over ``group`` where it splits the leaf)."""
+    pieces = _pieces(xr)
+    max_abs = _max([torch.linalg.vector_norm(p, float("inf"), dim=-1)
+                    for p in pieces])
+    if _split(group):
+        max_abs = group.max(max_abs)
+    hist = _fold([_tt.magnitude_histogram(p, max_abs).to(torch.int64)
+                  for p in pieces])
+    if _split(group):
+        hist = group.sum(hist)
     cdf = torch.cumsum(hist, dim=-1).to(torch.float32)
     return threshold_from_cdf(cdf, max_abs, ratio)
 
@@ -328,22 +360,38 @@ def fused_hybrid_roundtrip(x: torch.Tensor, local: torch.Tensor, ratio,
     shape), in f32: the threshold from one histogram of the whole leaf,
     then the Fig.-3 sender and receiver. Returns (recovered f32 [x.shape],
     payload bits [1]). With ``group``, ``x`` and ``local`` are this rank's
-    shards of the leaf and the bits are the whole leaf's."""
+    shards of the leaf and the bits are the whole leaf's. A row of more
+    than `_PIECE` elements goes through the kernels in pieces whose
+    counts, sums and maxima combine as the shards' do."""
     xr = _leaf_row(x)
     rr = _ratio_row(ratio, xr.device)
-    if not _split(group):
+    split = _split(group)
+    if not split and xr.shape[1] <= _PIECE:
         thr = fused_threshold(xr, rr)
         kept, sign, count, sum_abs, max_abs = fused_compress(xr, thr)
         n = x.numel()
+        outs = [(kept, sign)]
     else:
         thr = _group_threshold(xr, rr, group)
-        kept, sign, count, sum_abs, max_abs = fused_compress(xr, thr)
-        count = group.sum(count.to(torch.int64))
-        sum_abs, max_abs = group.sum(sum_abs), group.max(max_abs)
-        n = x.numel() * group.size
+        parts = [fused_compress(p, thr) for p in _pieces(xr)]
+        outs = [pt[:2] for pt in parts]
+        count = _fold([pt[2].to(torch.int64) for pt in parts])
+        sum_abs = _fold([pt[3] for pt in parts])
+        max_abs = _max([pt[4] for pt in parts])
+        del parts
+        n = x.numel()
+        if split:
+            count = group.sum(count)
+            sum_abs, max_abs = group.sum(sum_abs), group.max(max_abs)
+            n *= group.size
     del xr
     mean_abs = sum_abs / torch.clamp(count, min=1).to(torch.float32)
-    rec = fused_recover(kept, sign, _leaf_row(local), mean_abs, max_abs)
+    lr = _leaf_row(local)
+    if len(outs) == 1:
+        rec = fused_recover(outs[0][0], outs[0][1], lr, mean_abs, max_abs)
+    else:
+        rec = torch.cat([fused_recover(k, sg, lp, mean_abs, max_abs)
+                         for (k, sg), lp in zip(outs, _pieces(lr))], dim=1)
     return rec.reshape(x.shape), hybrid_payload_bits(n, count)
 
 
@@ -356,9 +404,244 @@ def fused_topk(g: torch.Tensor, ratio, group=None
     gr = _leaf_row(g)
     rr = _ratio_row(ratio, g.device)
     split = _split(group)
-    thr = (_group_threshold(gr, rr, group) if split
-           else fused_threshold(gr, rr))
+    thr = (_group_threshold(gr, rr, group)
+           if split or gr.shape[1] > _PIECE else fused_threshold(gr, rr))
     del gr                          # the selection reads g in its dtype
     sparse, n_keep = _topk_at(g.reshape(1, -1), thr)
     return (sparse.reshape(g.shape),
             topk_payload_bits(group.sum(n_keep) if split else n_keep))
+
+
+# ---------------------------------------------------------------------------
+# Exact-quantile operators: the reference's "reference operators"
+# (``repro.core.compression`` :48–147 and :316–360), which define the
+# semantics its property tests pin down and its round benchmark times.
+# Plain torch on any device: O(n log n) sorts, no kernel (the reference
+# computes them outside any Pallas kernel too). The fused operators above
+# are the hot path.
+#
+# The threshold is ``jnp.quantile(|x|, clip(ratio, 0, 1))`` as XLA computes
+# it, bit for bit: q·(n − 1) in f32, its floor and ceil as the ranks, the
+# weight w = q·(n − 1) − floor, and the linear blend that XLA on the CPU
+# evaluates as fma(high, w, round(low·(1 − w))). A one-ulp threshold moves
+# elements across the strict ``|x| < thr``, so the blend keeps that FMA's
+# single rounding (`_fma32`) rather than two products and a sum.
+# ---------------------------------------------------------------------------
+
+_VELTKAMP = 4097.0      # 2^12 + 1: splits a 24-bit significand in halves
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    """(s, e) with s = RN(a + b) and a + b = s + e exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a: torch.Tensor, b: torch.Tensor):
+    """(p, e) with p = RN(a·b) and a·b = p + e exactly (Dekker, with
+    Veltkamp's split of each factor into two 12-bit halves)."""
+    p = a * b
+    ca, cb = a * _VELTKAMP, b * _VELTKAMP
+    ah, bh = ca - (ca - a), cb - (cb - b)
+    al, bl = a - ah, b - bh
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+           ) -> torch.Tensor:
+    """f32 a·b + c rounded once, as a fused multiply-add rounds it.
+
+    PyTorch has no fma, Python 3.12 no ``math.fma``, and an f64 sum
+    rounded to f32 can round twice, so the single rounding is built from
+    f32 operations only (Boldo and Melquiond, "Emulation of FMA and
+    correctly rounded sums: proved algorithms using rounding to odd",
+    IEEE TC 2008): the exact product a·b = uh + ul and the exact sum
+    c + uh = th + tl, then v = tl + ul rounded to odd (of the two f32
+    values around the exact sum, the one with an odd significand, when
+    the sum is inexact), and RN(th + v) is RN(a·b + c). Every step is one
+    IEEE f32 operation in its own PyTorch op, so the CPU and the card
+    give the same bits and no f64 value touches a device buffer. Exact
+    while nothing underflows or overflows (|a|, |b| under 8e34)."""
+    uh, ul = _two_prod(a, b)
+    th, tl = _two_sum(c, uh)
+    v, e = _two_sum(tl, ul)
+    even = (v.view(torch.int32) & 1) == 0
+    toward = torch.nextafter(v, torch.where(e > 0, torch.full_like(
+        v, float("inf")), torch.full_like(v, float("-inf"))))
+    v = torch.where((e != 0) & even, toward, v)
+    return th + v
+
+
+def _ratio_scalar(ratio, device) -> torch.Tensor:
+    """``ratio`` as a 0-d f32 tensor on ``device`` (a Python number is
+    rounded to f32 once, as jnp rounds it; no host-to-device copy)."""
+    if isinstance(ratio, torch.Tensor):
+        return ratio.reshape(()).to(device=device, dtype=torch.float32)
+    return torch.full((), float(ratio), dtype=torch.float32, device=device)
+
+
+def magnitude_threshold(x: torch.Tensor, ratio) -> torch.Tensor:
+    """0-d f32 |x| value below which elements fall into the compressed
+    set: the exact ``ratio`` quantile of |x| (``jnp.quantile``'s linear
+    method, bit for bit; NaN if any |x| is NaN). One sort, so any size
+    (``torch.quantile`` refuses more than 2^24 elements)."""
+    mag = torch.abs(x.reshape(-1)).to(torch.float32)
+    dev, n = mag.device, mag.numel()
+    q = torch.clamp(_ratio_scalar(ratio, dev), 0.0, 1.0)
+    last = torch.full((), float(n), dtype=torch.float32, device=dev) - 1
+    pos = q * last
+    low, high = torch.floor(pos), torch.ceil(pos)
+    w = pos - low
+    # the ranks as jnp takes them: clamped in f32 to [0, f32(n) − 1], then
+    # to the last element (a gather clamps its start index)
+    ranks = torch.stack([torch.clamp(low, min=0.0), torch.clamp(high,
+                                                                min=0.0)])
+    ranks = torch.minimum(ranks, last).to(torch.int64).clamp_(0, n - 1)
+    lo_v, hi_v = torch.sort(mag).values.index_select(0, ranks)
+    thr = _fma32(hi_v, w, lo_v * (1 - w))
+    return torch.where(torch.isnan(mag).any(),
+                       torch.full_like(thr, float("nan")), thr)
+
+
+def compress_mask(x: torch.Tensor, ratio) -> torch.Tensor:
+    """Bool mask, True where the element is in the *compressed* (small)
+    set. Strict < keeps at least the max element at ratio 1 and makes
+    ratio 0 (thr = min|x|) compress nothing when all magnitudes differ."""
+    thr = magnitude_threshold(x, ratio)
+    # compared in f32 as jnp promotes it (torch would round a 0-d f32
+    # threshold to a bf16 x's dtype)
+    return torch.abs(x).to(torch.float32) < thr
+
+
+@dataclasses.dataclass
+class HybridCompressed:
+    """Semantic form of the Fig.-3 wire format for one tensor."""
+    kept: torch.Tensor       # x where full precision, 0 where compressed
+    sign: torch.Tensor       # int8 sign (+1/-1) where compressed, else 0
+    mean_abs: torch.Tensor   # 0-d f32: mean |x| over the compressed set
+    max_abs: torch.Tensor    # 0-d f32: max |x| over the compressed set
+    mask: torch.Tensor       # bool: True where compressed
+
+    def payload_bits(self) -> torch.Tensor:
+        """0-d int64 (the reference's int32 overflows past 2^26 elements)."""
+        n_comp = torch.sum(self.mask)
+        n_keep = self.mask.numel() - n_comp
+        return n_keep * FULL_BITS + n_comp * SIGN_BITS + STAT_BITS
+
+
+def hybrid_compress(x: torch.Tensor, ratio) -> HybridCompressed:
+    """Compress: the θ smallest-|x| elements → 1-bit sign + (mean, max)
+    stats. ``mean_abs`` sums in PyTorch's order, not XLA's (rtol 1e-5);
+    everything else is the reference's bit for bit."""
+    mask = compress_mask(x, ratio)
+    absx = torch.abs(x)
+    n = torch.clamp(torch.sum(mask), min=1)
+    small = torch.where(mask, absx, 0.0)
+    mean_abs = torch.sum(small) / n
+    max_abs = torch.amax(small)
+    sign = torch.where(mask, torch.sign(x), 0.0).to(torch.int8)
+    kept = torch.where(mask, 0.0, x).to(x.dtype)
+    return HybridCompressed(kept=kept, sign=sign,
+                            mean_abs=mean_abs.to(torch.float32),
+                            max_abs=max_abs.to(torch.float32), mask=mask)
+
+
+def hybrid_recover(c: HybridCompressed, local: torch.Tensor) -> torch.Tensor:
+    """Fig.-3 recovery with the receiver's stale ``local`` tensor: a
+    compressed slot takes the local value unless its sign contradicts the
+    transmitted sign (a local zero agrees) or its magnitude exceeds
+    max_abs; then sign·mean_abs."""
+    sgn = c.sign.to(local.dtype)
+    sign_bad = torch.sign(local) * sgn < 0
+    mag_bad = torch.abs(local) > c.max_abs
+    fallback = sgn * c.mean_abs.to(local.dtype)
+    approx = torch.where(sign_bad | mag_bad, fallback, local)
+    return torch.where(c.mask, approx, c.kept.to(local.dtype))
+
+
+def hybrid_roundtrip(x: torch.Tensor, local: torch.Tensor, ratio
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """compress→recover in one call: (recovered, payload bits)."""
+    c = hybrid_compress(x, ratio)
+    return hybrid_recover(c, local), c.payload_bits()
+
+
+def topk_sparsify(g: torch.Tensor, ratio
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Zero the θ smallest-|g| elements: (sparse g, payload bits), an
+    (index, f32 value) pair per survivor."""
+    mask = compress_mask(g, ratio)                 # True = dropped
+    sparse = torch.where(mask, 0.0, g).to(g.dtype)
+    n_keep = g.numel() - torch.sum(mask)
+    return sparse, n_keep * (FULL_BITS + INDEX_BITS)
+
+
+# Trees: nested dicts of tensors in sorted-key order, a None an empty
+# subtree (`fl.distributed.tree_map`'s trees), flattened to one f32 vector
+# so the ratio is one of the whole model payload, as the paper's.
+
+def _tree_leaves(tree) -> list:
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    return [tree]
+
+
+def _flatten(tree) -> torch.Tensor:
+    return torch.cat([x.reshape(-1).to(torch.float32)
+                      for x in _tree_leaves(tree)])
+
+
+def _unflatten(flat: torch.Tensor, like):
+    """``flat`` cut back into ``like``'s leaves, shapes and dtypes."""
+    off = 0
+
+    def rebuild(t):
+        nonlocal off
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: rebuild(t[k]) for k in sorted(t)}
+        out = flat[off:off + t.numel()].reshape(t.shape).to(t.dtype)
+        off += t.numel()
+        return out
+
+    return rebuild(like)
+
+
+def tree_hybrid_roundtrip(tree, local_tree, ratio):
+    """Whole-model download compression with one global threshold:
+    (recovered tree, payload bits)."""
+    rec, bits = hybrid_roundtrip(_flatten(tree), _flatten(local_tree), ratio)
+    return _unflatten(rec, tree), bits
+
+
+def tree_topk_sparsify(tree, ratio):
+    sparse, bits = topk_sparsify(_flatten(tree), ratio)
+    return _unflatten(sparse, tree), bits
+
+
+def tree_payload_bits_dense(tree) -> int:
+    """Uncompressed fp32 payload of a tree, in bits."""
+    return sum(x.numel() for x in _tree_leaves(tree)) * FULL_BITS
+
+
+def _tree_zip(fn, a, b):
+    if a is None:
+        return None
+    if isinstance(a, dict):
+        return {k: _tree_zip(fn, a[k], b[k]) for k in sorted(a)}
+    return fn(a, b)
+
+
+def ef_compress(g, ef, ratio, enabled: bool = True):
+    """Error-feedback top-k: compress (g + ef), stash the residual back in
+    ef. Returns (sparse tree, new ef, payload bits)."""
+    if not enabled:
+        sparse, bits = tree_topk_sparsify(g, ratio)
+        return sparse, ef, bits
+    corrected = _tree_zip(lambda a, b: a + b, g, ef)
+    sparse, bits = tree_topk_sparsify(corrected, ratio)
+    return sparse, _tree_zip(lambda c, s: c - s, corrected, sparse), bits

@@ -33,7 +33,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, meta, ref
 
 decode_attention_plain = ref.decode_attention
 _C = ctypes.c_void_p
@@ -154,7 +154,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, length, lse, out_dtype)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, length, lse, out_dtype)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     b, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
@@ -163,18 +163,30 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {d}")
     if b > 65535:
         raise ValueError("at most 65535 sequences")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    on_card = q.device.type == "cuda"
+    if on_card and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned")
-    fn = _lib()
     p = plan(b, h, hkv, d, s, q.element_size(),
-             build.sm_count(q.device.index or 0))
+             build.sm_count(q.device.index or 0) if on_card
+             else meta.SM_COUNT)
     out = torch.empty_like(q, dtype=out_dtype or q.dtype)
     kind = _DTYPES[q.dtype] if out.dtype == q.dtype else F32_OUT
     part = ticket = None
-    stream = build.stream_of(q)
     if p.n_split > 1:
         part = torch.empty(p.blocks(b, hkv) * p.gt * (d + 2),
                            dtype=torch.float32, device=q.device)
+    if not on_card:
+        # the lengths are data: every row is read at its full S (the
+        # most a launch can read; a census of a cache filled to S − 1)
+        es = q.element_size()
+        meta.record("decode_attention",
+                    b * h * d * es + 2 * b * s * hkv * d * es + 4 * b,
+                    out.numel() * out.element_size()
+                    + (0 if lse is None else 4 * b * h))
+        return out
+    fn = _lib()
+    stream = build.stream_of(q)
+    if p.n_split > 1:
         ticket = build.zeroed_scratch("decode_attention", q.device,
                                       p.pairs(b, hkv), stream)
     with torch.cuda.device(q.device):

@@ -30,7 +30,7 @@ from fractions import Fraction
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, meta, ref
 
 hybrid_compress_plain = ref.hybrid_compress
 _C = ctypes.c_void_p
@@ -105,29 +105,35 @@ def hybrid_compress(x: torch.Tensor, thr: torch.Tensor):
     _check(x, thr)
     if x.device.type == "cpu":
         return hybrid_compress_plain(x, thr)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     rows, n = thr.shape[0], x.shape[-1]
     if rows > 65535:
         raise ValueError("at most 65535 rows per launch")
-    fn = _lib()
     dev = x.device
     shared = x.dim() == 1
+    on_card = dev.type == "cuda"
     per_block, col_blocks, group, split = compress_plan(
-        rows, n, build.sm_count(dev.index or 0), shared)
+        rows, n, build.sm_count(dev.index or 0) if on_card
+        else meta.SM_COUNT, shared)
     kept = torch.empty((rows, n), dtype=torch.float32, device=dev)
     sign = torch.empty((rows, n), dtype=torch.int8, device=dev)
     count = torch.empty(rows, dtype=torch.int32, device=dev)
     sum_abs = torch.empty(rows, dtype=torch.float32, device=dev)
     max_abs = torch.empty(rows, dtype=torch.float32, device=dev)
-    stream = build.stream_of(x)
     partials = tickets = None
     if col_blocks > 1:
         # per row and slice: count, sum, max (held until the launch is
-        # enqueued, so the allocator cannot hand its memory to the tickets);
-        # a ticket per row group
+        # enqueued, so the allocator cannot hand its memory to the tickets)
         partials = torch.empty(3 * rows * col_blocks, dtype=torch.int32,
                                device=dev)
+    if not on_card:
+        meta.record("hybrid_compress", x.numel() * 4 + rows * 4,
+                    rows * n * 5 + rows * 12)
+        return kept, sign, count, sum_abs, max_abs
+    fn = _lib()
+    stream = build.stream_of(x)
+    if col_blocks > 1:                  # a ticket per row group
         tickets = build.zeroed_scratch("hybrid_compress", dev,
                                        -(-rows // group), stream)
     with torch.cuda.device(dev):

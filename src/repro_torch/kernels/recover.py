@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, meta, ref
 
 recover_plain = ref.recover
 _C = ctypes.c_void_p
@@ -76,11 +76,15 @@ def recover(kept: torch.Tensor, sign: torch.Tensor, local: torch.Tensor,
     _check(kept, sign, local, mean_abs, max_abs)
     if local.device.type == "cpu":
         return recover_plain(kept, sign, local, mean_abs, max_abs)
-    if local.device.type != "cuda":
+    if local.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {local.device}")
     rows, n = local.shape
     if rows > 65535:
         raise ValueError("at most 65535 rows per launch")
+    if local.device.type == "meta":
+        meta.record("recover", rows * n * 9 + rows * 8, rows * n * 4)
+        return torch.empty((rows, n), dtype=torch.float32,
+                           device=local.device)
     for name, t, to in (("kept", kept, 16), ("local", local, 16),
                         ("sign", sign, 4)):
         if t.data_ptr() % to:

@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, meta, ref
 
 N_BINS = ref.N_BINS
 magnitude_histogram_plain = ref.magnitude_histogram
@@ -72,12 +72,17 @@ def magnitude_histogram(x: torch.Tensor, max_abs: torch.Tensor
     _check(x, max_abs)
     if x.device.type == "cpu":
         return magnitude_histogram_plain(x, max_abs)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     if x.shape[0] > 65535:
         raise ValueError("at most 65535 rows per launch")
-    fn = _lib()
     rows, n = x.shape
+    if x.device.type == "meta":
+        meta.record("magnitude_histogram", rows * n * 4 + rows * 4,
+                    rows * N_BINS * 4)
+        return torch.empty((rows, N_BINS), dtype=torch.int32,
+                           device=x.device)
+    fn = _lib()
     per_block, blocks = hist_plan(rows, n,
                                   build.sm_count(x.device.index or 0))
     hist = torch.empty((rows, N_BINS), dtype=torch.int32, device=x.device)

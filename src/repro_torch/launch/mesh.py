@@ -32,7 +32,10 @@ one rank per mesh position in row-major rank order (the device order of
 runs over. `make_mesh` builds one over the current world,
 `make_local_mesh` the (1, 1) mesh of a world of 1 and
 `make_production_mesh` the (16, 16) or (2, 16, 16) mesh of 256 or 512
-ranks; `abstract_mesh` has the shape only (for the partition specs).
+ranks; `abstract_mesh` has the shape only (for the partition specs), and
+`census_mesh` is one rank's abstract mesh whose collectives are recorded
+in a `CollectiveCensus` instead of run (``launch.dryrun``'s census on
+``meta`` tensors).
 Every collective of a `Mesh` is an all-gather folded left in ascending
 rank order (`Mesh.sum_axis`) or an all-reduce MAX (`Mesh.max_axis`), so
 its bits do not depend on the backend's reduce tree.
@@ -231,7 +234,8 @@ class Mesh:
     the process groups of `make_mesh` (keyed by the frozenset of the axes
     a group spans; a set whose ranks are the whole world uses the world's
     group, and a set of size 1 has none). ``abstract`` meshes have the
-    shape only: their collectives raise."""
+    shape only: their collectives raise, unless a ``census`` records
+    them (`census_mesh`)."""
     axis_names: tuple
     sizes: tuple
     coords: tuple
@@ -239,6 +243,7 @@ class Mesh:
     rank: int = 0
     groups: dict = dataclasses.field(default_factory=dict)
     abstract: bool = False
+    census: "CollectiveCensus | None" = None
 
     @property
     def shape(self) -> dict:
@@ -280,10 +285,13 @@ class Mesh:
         live = self.live_axes(axes)
         if not live:
             return [x]
-        if self.abstract:
-            raise RuntimeError("an abstract mesh has no process groups")
-        group = self.groups[frozenset(live)]
         x = x.contiguous()
+        if self.abstract:
+            # the card's allocations, no data: every part is a stand-in
+            self._census().record("all-gather", live, self.size_over(live),
+                                  x)
+            return [torch.empty_like(x) for _ in range(self.size_over(live))]
+        group = self.groups[frozenset(live)]
         parts = [torch.empty_like(x) for _ in range(self.size_over(live))]
         dist.all_gather(parts, x, group=group)
         order = tuple(a for a in axis_tuple(axes) if a in live)
@@ -323,9 +331,11 @@ class Mesh:
         live = self.live_axes(axes)
         if not live:
             return x
-        if self.abstract:
-            raise RuntimeError("an abstract mesh has no process groups")
         out = x.detach().clone()
+        if self.abstract:
+            self._census().record("all-reduce", live, self.size_over(live),
+                                  x)
+            return out
         dist.all_reduce(out, op=dist.ReduceOp.MAX,
                         group=self.groups[frozenset(live)])
         return out
@@ -334,8 +344,14 @@ class Mesh:
         """Wait for every rank of the mesh (nothing over one rank)."""
         if self.size > 1:
             if self.abstract:
-                raise RuntimeError("an abstract mesh has no process groups")
+                self._census()          # a recorded census moves no data
+                return
             dist.barrier()
+
+    def _census(self) -> "CollectiveCensus":
+        if self.census is None:
+            raise RuntimeError("an abstract mesh has no process groups")
+        return self.census
 
     def group(self, axes) -> "AxisGroup":
         return AxisGroup(self, axis_tuple(axes))
@@ -377,6 +393,52 @@ def _coords(rank: int, shape: tuple) -> tuple:
     return tuple(reversed(out))
 
 
+class CollectiveCensus:
+    """The collectives one rank of a `census_mesh` would run, in order:
+    per call its op (``all-gather`` for `Mesh._parts`, the gather under
+    every sum and gather; ``all-reduce`` for `Mesh.max_axis`), the live
+    axes, the group size n, and the bytes of the rank's own operand b.
+    ``result_bytes`` is the op's result (n·b for a gather, b for a
+    reduce), as the reference's HLO census counts it. ``sent`` is b and
+    ``received`` the other ranks' (n − 1)·b: what an exchange of every
+    rank's operand moves, for the MAX too (gloo's own algorithms move
+    other amounts on the wire)."""
+
+    MAX_OPS = 200                     # ops listed per kind, as the reference
+
+    def __init__(self):
+        self.calls = []
+
+    def record(self, op: str, axes: tuple, group: int, x: torch.Tensor
+               ) -> None:
+        b = x.numel() * x.element_size()
+        self.calls.append({"op": op, "axes": list(axes), "group": group,
+                           "bytes": b,
+                           "result_bytes": b * group if op == "all-gather"
+                           else b, "received": b * (group - 1)})
+
+    def summary(self) -> dict:
+        """{op: {count, result_bytes, sent, received, ops[≤200]}} and the
+        rank's totals (the reference's collective census, per rank)."""
+        out = {op: {"count": 0, "result_bytes": 0, "sent": 0,
+                    "received": 0, "ops": []}
+               for op in ("all-gather", "all-reduce")}
+        for c in self.calls:
+            rec = out[c["op"]]
+            rec["count"] += 1
+            rec["result_bytes"] += c["result_bytes"]
+            rec["sent"] += c["bytes"]
+            rec["received"] += c["received"]
+            if len(rec["ops"]) < self.MAX_OPS:
+                rec["ops"].append({"bytes": c["result_bytes"],
+                                   "group": c["group"],
+                                   "axes": c["axes"]})
+        out["total"] = {k: sum(out[op][k] for op in ("all-gather",
+                                                     "all-reduce"))
+                        for k in ("count", "sent", "received")}
+        return out
+
+
 def abstract_mesh(shape, names) -> Mesh:
     """A mesh of ``shape`` with no world behind it (coordinates 0, the
     ``meta`` device): for the partition specs, as
@@ -384,6 +446,21 @@ def abstract_mesh(shape, names) -> Mesh:
     shape, names = _check_shape(shape, names)
     return Mesh(axis_names=names, sizes=shape, coords=(0,) * len(shape),
                 device=torch.device("meta"), abstract=True)
+
+
+def census_mesh(shape, names, rank: int = 0) -> Mesh:
+    """Rank ``rank``'s view of the mesh ``shape`` with no world behind it,
+    on the ``meta`` device, whose collectives are recorded in its
+    ``census`` (a `CollectiveCensus`) instead of run: `Mesh._parts`
+    returns ``empty_like`` stand-ins of every rank's part (the
+    allocations the card's gather makes), `Mesh.max_axis` a clone, and
+    `Mesh.barrier` does nothing."""
+    shape, names = _check_shape(shape, names)
+    if not 0 <= rank < math.prod(shape):
+        raise ValueError(f"rank {rank} is not in a {shape} mesh")
+    return Mesh(axis_names=names, sizes=shape, coords=_coords(rank, shape),
+                device=torch.device("meta"), rank=rank, abstract=True,
+                census=CollectiveCensus())
 
 
 def make_mesh(shape, names, device="cuda") -> Mesh:

@@ -78,11 +78,18 @@ def _map2(fn, tree, specs):
     return fn(tree, specs)
 
 
+def _own_block(full: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """`shard_leaf` as a tensor of its own: a block cut from ``full`` is
+    copied even where the view is contiguous already (a block along the
+    first dim is), so it holds no storage of the whole leaf."""
+    out = shard_leaf(full, spec, mesh)
+    return out.contiguous() if out is full else out.clone(
+        memory_format=torch.contiguous_format)
+
+
 def shard_tree(tree, specs, mesh: Mesh):
-    """`shard_leaf` of every leaf (contiguous copies, so the whole tree can
-    go)."""
-    return _map2(lambda a, s: shard_leaf(a, s, mesh).contiguous(), tree,
-                 specs)
+    """`shard_leaf` of every leaf (copies, so the whole tree can go)."""
+    return _map2(lambda a, s: _own_block(a, s, mesh), tree, specs)
 
 
 def gather_tree(tree, specs, mesh: Mesh):

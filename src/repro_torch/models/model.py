@@ -84,12 +84,13 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; "cuda" without a card raises (the port
-    never falls back to the CPU)."""
+    never falls back to the CPU). ``meta`` runs the card's path on shapes
+    only (``launch.dryrun``'s census)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but torch.cuda.is_available() is "
                            "False; pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 
