@@ -210,8 +210,10 @@ Phases, each of which fails the script on any error:
    not fit one card);
 11. pod mesh: Track B over a ("pod", "data", "model") mesh on 4 gloo
    ranks sharing the card (`mesh.spawn`), each rank holding its shards
-   of every leaf: (a) the reference's multipod config on (2, 2, 1) and
-   Llama-4-Scout's smoke config on (1, 2, 2), 2 steps: the card's run
+   of every leaf, the layers tensor-parallel over "model" where the
+   specs split a leaf there (attention, SwiGLU, LM head): (a) the
+   reference's multipod config on (2, 2, 1) and Llama-4-Scout's smoke
+   config on (1, 2, 2), 2 steps: the card's run
    twice bit-identical, and within loss rtol 2e-6, params rel. L2 1e-5
    and residuals 5e-4 outside at most 16 flips of the cpu ranks' run and
    of the meshless composition pod by pod on the card; (b) Qwen1.5-4B at
@@ -224,7 +226,8 @@ Phases, each of which fails the script on any error:
    2^31; ms per step (the slowest rank), tokens/s, peak memory per rank;
 12. serve mesh: serving and prefill under a ("data", "model") mesh of
    gloo ranks sharing the card, each rank holding its shards of the
-   parameters and of the cache (`launch.specs.cache_specs`): (e), run as
+   parameters and of the cache (`launch.specs.cache_specs`), the layers
+   tensor-parallel over "model": (e), run as
    phase 4b, the decode kernel's lse mode against its plain version at
    each point's per-rank shapes (f32 3e-5, bf16 2e-2, lse 1e-5, the
    output bit-equal to the call without lse, the f32 output of bf16
@@ -253,11 +256,17 @@ Phases, each of which fails the script on any error:
    parameter and state bytes it holds, equal; the census's peak within
    10% of `torch.cuda.max_memory_allocated` after a reset of the peak)
    and phase 12(a)'s first decode step (collectives, parameter and cache
-   bytes equal, peak within 10%); (c) printed beside its census. Then
+   bytes equal, peak within 10%); (c) printed beside its census; every
+   collective counted with its live axes (the all-gathers, the
+   all-to-alls of each sum's first phase, the MAX all-reduces). Then
    the census alone of Qwen1.5-4B `train_4k` on (16, 16), Qwen1.5-4B on
    (2, 2, 1) at 8 and 12 layers as phase 11 runs it (four ranks' peaks
    against the card's memory), and DeepSeek-V3 `train_4k` and
-   `decode_32k` on (16, 16) and (2, 16, 16);
+   `decode_32k` on (16, 16) and (2, 16, 16). Then one line per point of
+   11(b), (c) and 12(a)–(c), "tensor parallel <point>:": the bytes each
+   rank received over each set of axes ("model", "data", …) in its
+   counted step (11's second, 12's first decode step), ms per step beside
+   the point's before the layers were tensor-parallel, and the card;
 14. exact operators: `core.compression`'s exact-quantile operators
    (`magnitude_threshold`, `compress_mask`, `hybrid_compress`/`recover`,
    `topk_sparsify`, the tree wrappers, `ef_compress`), cuda against cpu,
@@ -3953,8 +3962,8 @@ def _serve_mesh_rank(rank, world, store, out_dir, points, feed_path, dev):
         params = SH.shard_tree(params, M.param_specs(cfg, mesh), mesh)
         res = _serve_mesh_steps(
             torch, pt, cfg, params, mesh, feed[name].to(mesh.device),
-            mesh.device, census_step=0 if name in SERVE_MESH_CENSUS
-            and mesh.device.type == "cuda" else None)
+            mesh.device, census_step=0 if mesh.device.type == "cuda"
+            else None)
         res.update(coords=mesh.coords, plain_calls=plain["calls"],
                    local_params=sum(x.numel() for x in D.tree_leaves(params)),
                    params_bytes=sum(x.numel() * x.element_size()
@@ -4280,32 +4289,50 @@ EXACT_MEAN_RTOL = 1e-5           # Σ|x| summed in another order
 
 
 def _count_collectives(calls: list):
-    """Wrap `Mesh._parts` and `Mesh.max_axis` (class-wide, in this
-    process) so that every collective a mesh runs appends (op, group
-    size, operand bytes) to ``calls``, in the census's terms
-    (`launch.mesh.CollectiveCensus`); returns the undo."""
+    """Wrap `Mesh._gather`, `Mesh._exchange` and `Mesh.max_axis`
+    (class-wide, in this process) so that every collective a mesh runs
+    appends (op, group size, operand bytes, live axes joined by "+") to
+    ``calls``, in the census's terms (`launch.mesh.CollectiveCensus`);
+    returns the undo."""
     from repro_torch.launch import mesh as MESH
-    parts, mx = MESH.Mesh._parts, MESH.Mesh.max_axis
+    gather, exchange, mx = (MESH.Mesh._gather, MESH.Mesh._exchange,
+                            MESH.Mesh.max_axis)
 
-    def _parts(self, x, axes):
-        out = parts(self, x, axes)
-        if len(out) > 1:
-            calls.append(("all-gather", len(out),
-                          x.numel() * x.element_size()))
-        return out
+    def _gather(self, x, live):
+        calls.append(("all-gather", self.size_over(live),
+                      x.numel() * x.element_size(), "+".join(live)))
+        return gather(self, x, live)
+
+    def _exchange(self, x, live):
+        calls.append(("all-to-all", self.size_over(live),
+                      x.numel() * x.element_size(), "+".join(live)))
+        return exchange(self, x, live)
 
     def max_axis(self, x, axes):
         live = self.live_axes(axes)
         if live:
             calls.append(("all-reduce", self.size_over(live),
-                          x.numel() * x.element_size()))
+                          x.numel() * x.element_size(), "+".join(live)))
         return mx(self, x, axes)
 
-    MESH.Mesh._parts, MESH.Mesh.max_axis = _parts, max_axis
+    MESH.Mesh._gather, MESH.Mesh._exchange, MESH.Mesh.max_axis = (
+        _gather, _exchange, max_axis)
 
     def undo():
-        MESH.Mesh._parts, MESH.Mesh.max_axis = parts, mx
+        MESH.Mesh._gather, MESH.Mesh._exchange, MESH.Mesh.max_axis = (
+            gather, exchange, mx)
     return undo
+
+
+def _received(calls) -> dict:
+    """{live axes: bytes received} of (op, group, bytes, axes) calls: the
+    other ranks' (n − 1)·b of a gather or MAX, (n − 1)/n·b of an
+    all-to-all (the census's terms)."""
+    out = {}
+    for op, g, b, axes in calls:
+        out[axes] = out.get(axes, 0) + (b * (g - 1) // g if op == "all-to-all"
+                                        else b * (g - 1))
+    return out
 
 
 def _held_bytes(D, state) -> dict:
@@ -4403,9 +4430,9 @@ def _census_worker(out_dir: str) -> None:
         cfg = _family_cfg(arch, layers)
         mesh = MESH.census_mesh(shape, names, rank)
         rec = DR.census(cfg, cell, mesh, D.DistConfig(**dist))
-        rec["calls"] = [[c["op"], c["group"], c["bytes"]]
-                        for c in mesh.census.calls]
-        for op in ("all-gather", "all-reduce"):
+        rec["calls"] = [[c["op"], c["group"], c["bytes"],
+                         "+".join(c["axes"])] for c in mesh.census.calls]
+        for op in MESH.CollectiveCensus.OPS:
             rec["collectives"][op].pop("ops")
         out[name] = rec
     with open(os.path.join(out_dir, "census.json"), "w") as f:
@@ -4453,8 +4480,9 @@ def _census_gate(what, rec, meas, state: bool) -> dict:
     rel = (peak - want) / want
     check(abs(rel) <= CENSUS_PEAK_RTOL, f"{what}: census peak {peak} B, "
           f"measured {want} ({rel:+.3f})")
-    return {"collectives": len(got), "received": sum(
-        b * (g - 1) for _, g, b in got), "peak_census": peak,
+    return {"collectives": len(got), "received": sum(_received(
+        got).values()), "received_by_axes": _received(got),
+        "peak_census": peak,
         "peak_measured": want, "peak_rel": rel,
         "params_bytes": rb["params"], "state_bytes": rb["state"],
         "cache_bytes": rb["cache"]}
@@ -4470,6 +4498,7 @@ def _census_summary(rec) -> dict:
             "collectives": rec["collectives"]["total"],
             "all_gather_received": rec["collectives"]["all-gather"][
                 "received"],
+            "received_by_axes": rec["collectives"]["received_by_axes"],
             "rank_bytes": rec["rank_bytes"], "kernels": rec["kernels"],
             "trace_s": rec["trace_s"]}
 
@@ -4513,6 +4542,36 @@ def phase_census(torch, res, pod, serve_mesh, smi) -> dict:
         print(f"census {name}: " + json.dumps(out["cells"][name]))
     for k, v in list(out["gated"].items()) + list(out["reported"].items()):
         print(f"census {k}: " + json.dumps(v))
+    return out
+
+
+# ms per step of phase 11's full-width points and of phase 12's points in
+# this script's run at commit 40364d8 (NVIDIA H100 80GB HBM3, 700.00 W),
+# before the layers were tensor-parallel over "model": printed beside
+# this run's
+BEFORE_TP_MS_PER_STEP = {"pod_qwen": 8795.059239000011,
+                    "pod_llama4": 14736.64733399994,
+                    "serve_mesh_qwen_batch": 1835.8922659999735,
+                    "serve_mesh_qwen_long": 2417.9244059999974,
+                    "serve_mesh_granite": 1728.9002070000379}
+
+
+def phase_tp_traffic(pod, serve_mesh, smi) -> dict:
+    """Per point of phases 11(b), (c) and 12(a)–(c): the bytes each rank
+    received over each set of live axes ("model", "data", …) in the step
+    whose collectives were counted (phase 11's second training step,
+    phase 12's first decode step), ms per step beside the same point's
+    before tensor parallelism, and the card."""
+    out = {}
+    points = [(n, pod[n]) for n in POD_FULL] + [(n, serve_mesh[n])
+                                                for n in SERVE_MESH]
+    for name, res in points:
+        out[name] = {
+            "card": smi, "received_per_step_per_rank": [
+                _received(c["calls"]) for c in res["census_step_per_rank"]],
+            "ms_per_step": res["ms_per_step"],
+            "ms_per_step_before_tp": BEFORE_TP_MS_PER_STEP[name]}
+        print(f"tensor parallel {name}: " + json.dumps(out[name]))
     return out
 
 
@@ -4705,6 +4764,7 @@ def main() -> int:
                        census_dir)
     census = timed("census", phase_census, torch, census_res, pod,
                    serve_mesh, smi)
+    tp_traffic = phase_tp_traffic(pod, serve_mesh, smi)
     exact = timed("exact_operators", phase_exact, torch, census_res)
     shutil.rmtree(census_dir, ignore_errors=True)
     _scratch_zeroed(torch, build, "the round, schemes, store, serve and "
@@ -4820,6 +4880,7 @@ def main() -> int:
                    "serve_families": serve_fam,
                    "train_families": train_fam, "pod_mesh": pod,
                    "serve_mesh": serve_mesh, "census": census,
+                   "tp_traffic": tp_traffic,
                    "exact_operators": exact,
                    "phase_s": phase_s, "kernels": kernels},
                   f, indent=1)

@@ -13,7 +13,9 @@ Under a ("pod",) "data", "model" `launch.mesh.Mesh` (the reference's
 of each leaf as `models.model.param_specs` says, and its own pod's stale
 model and residual. A rank trains on the rows ``[pod block][micro
 i][data block]`` of the global batch (`models.model.loss_fn` gathers each
-leaf on use and sums the gradient over the pod's data ranks); each leaf's
+leaf on use over its spec's axes but "model" where the layer is
+tensor-parallel there, and sums the gradient over the pod's data ranks);
+each leaf's
 compression stays whole-leaf (``group=`` of the compression operators:
 thresholds from histograms summed over the leaf's shards, the kernels on
 each shard); the pods' wire-format deltas are summed over "pod" in a fixed

@@ -26,7 +26,8 @@ collectives are recorded instead of run, each kernel wrapper takes its
   once at its own bytes;
 * **collectives** — the reference's ``{op: {count, result_bytes,
   ops[≤200]}}`` from the mesh's `CollectiveCensus`, with the bytes a rank
-  sends and receives;
+  sends and receives, and the bytes received per set of axes
+  (``received_by_axes``: "model" and "data" traffic apart);
 * **kernels** — launches and bytes per kernel.
 
 `rank_bytes` is the spec arithmetic alone (no step): a rank's bytes of
@@ -506,7 +507,10 @@ def main(argv=None):
                          f"args={m['argument_size_in_bytes'] / 1e9:.2f}GB "
                          f"flops={rec['flops']:.3e} coll_recv="
                          f"{rec['collectives']['total']['received'] / 1e9:.2f}"
-                         "GB")
+                         "GB (" + ", ".join(
+                             f"{k} {v / 1e9:.2f}" for k, v in sorted(
+                                 rec['collectives']['received_by_axes']
+                                 .items())) + ")")
             else:
                 extra = rec.get("why") or rec.get("error", "")
             print(f"  -> {rec['status']}: {extra}", flush=True)

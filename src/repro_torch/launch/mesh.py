@@ -36,9 +36,11 @@ ranks; `abstract_mesh` has the shape only (for the partition specs), and
 `census_mesh` is one rank's abstract mesh whose collectives are recorded
 in a `CollectiveCensus` instead of run (``launch.dryrun``'s census on
 ``meta`` tensors).
-Every collective of a `Mesh` is an all-gather folded left in ascending
-rank order (`Mesh.sum_axis`) or an all-reduce MAX (`Mesh.max_axis`), so
-its bits do not depend on the backend's reduce tree.
+Every collective of a `Mesh` is an all-gather (`Mesh.all_gather_axis`),
+a sum folded left in ascending rank order at all-reduce cost (an
+all-to-all, each rank's fold of its block, an all-gather:
+`Mesh.sum_axis`) or an all-reduce MAX (`Mesh.max_axis`), so its bits do
+not depend on the backend's reduce tree.
 
 Nothing touches ``torch.distributed`` on import. ``shard_map_compat`` and
 ``host_local_array`` have no counterpart here (SPMD ranks take their
@@ -219,6 +221,14 @@ def spawn(fn, world: int, args: tuple = (), timeout_s: float = 600.0
 # Track B's pod meshes
 # ---------------------------------------------------------------------------
 
+def _fold(parts: list) -> torch.Tensor:
+    """``((p0 + p1) + p2) + …``: the parts added left to right."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
 def axis_tuple(axes) -> tuple:
     """An axis name, a tuple of names or None (a spec entry, say) as a
     tuple of names."""
@@ -279,25 +289,36 @@ class Mesh:
     def size_over(self, axes) -> int:
         return math.prod(self.axis_size(a) for a in axis_tuple(axes))
 
-    def _parts(self, x: torch.Tensor, axes) -> list:
-        """Every rank's ``x`` over ``axes``, ordered row-major over the
-        axes in the order given (one part when they span one rank)."""
-        live = self.live_axes(axes)
-        if not live:
-            return [x]
-        x = x.contiguous()
+    def _gather(self, x: torch.Tensor, live: tuple) -> list:
+        """Every rank's ``x`` over the live axes ``live`` (mesh order), in
+        group rank order: one all-gather."""
         if self.abstract:
             # the card's allocations, no data: every part is a stand-in
             self._census().record("all-gather", live, self.size_over(live),
                                   x)
             return [torch.empty_like(x) for _ in range(self.size_over(live))]
-        group = self.groups[frozenset(live)]
         parts = [torch.empty_like(x) for _ in range(self.size_over(live))]
-        dist.all_gather(parts, x, group=group)
+        dist.all_gather(parts, x, group=self.groups[frozenset(live)])
+        return parts
+
+    def _exchange(self, x: torch.Tensor, live: tuple) -> torch.Tensor:
+        """One all-to-all over ``live``: ``x`` (1-D, a multiple of the
+        group size n long) is cut into n blocks, block j goes to group
+        rank j, and block j of the result came from group rank j."""
+        if self.abstract:
+            self._census().record("all-to-all", live, self.size_over(live),
+                                  x)
+            return torch.empty_like(x)
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self.groups[frozenset(live)])
+        return out
+
+    def _in_order(self, parts: list, axes, live: tuple) -> list:
+        """``parts`` in group rank order (ascending in mesh order)
+        reordered row-major over ``axes`` in the order given."""
         order = tuple(a for a in axis_tuple(axes) if a in live)
         if order == live:
             return parts
-        # group ranks ascend in mesh order; reorder to the order given
         ranked = list(itertools.product(*(range(self.axis_size(a))
                                           for a in live)))
         pos = {a: i for i, a in enumerate(live)}
@@ -309,6 +330,14 @@ class Mesh:
             out[j] = part
         return out
 
+    def _parts(self, x: torch.Tensor, axes) -> list:
+        """Every rank's ``x`` over ``axes``, ordered row-major over the
+        axes in the order given (one part when they span one rank)."""
+        live = self.live_axes(axes)
+        if not live:
+            return [x]
+        return self._in_order(self._gather(x.contiguous(), live), axes, live)
+
     def all_gather_axis(self, x: torch.Tensor, axes, dim: int = 0
                         ) -> torch.Tensor:
         """The ranks' blocks of ``x`` over ``axes`` concatenated along
@@ -318,12 +347,32 @@ class Mesh:
 
     def sum_axis(self, x: torch.Tensor, axes) -> torch.Tensor:
         """Σ of ``x`` over the ranks of ``axes``, folded left in ascending
-        rank order on every rank (``x`` itself over one rank)."""
-        parts = self._parts(x, axes)
-        acc = parts[0]
-        for p in parts[1:]:
-            acc = acc + p
-        return acc
+        rank order (row-major over the axes in the order given) on every
+        rank, with every element's bits the same on every rank (``x``
+        itself over one rank).
+
+        At all-reduce cost: the flat ``x``, zero-padded to a multiple of
+        the group size n, goes through one all-to-all (group rank j gets
+        block j of every rank's), each rank folds its block's n parts in
+        that order, and one all-gather brings the folded blocks back —
+        2(n − 1)/n of ``x``'s bytes received, where gathering every rank's
+        whole ``x`` receives (n − 1)·b. Each element is the same fold of
+        the same parts as that gather's. A tensor of fewer than n
+        elements takes the gather."""
+        live = self.live_axes(axes)
+        if not live:
+            return x
+        n = self.size_over(live)
+        if x.numel() < n:
+            return _fold(self._parts(x, axes))
+        flat = x.contiguous().reshape(-1)
+        blk = -(-flat.numel() // n)
+        if blk * n != flat.numel():
+            flat = torch.cat([flat, flat.new_zeros(blk * n - flat.numel())])
+        mine = _fold(self._in_order(list(self._exchange(flat, live).split(
+            blk)), axes, live))
+        out = torch.cat(self._gather(mine.contiguous(), live))
+        return out[:x.numel()].reshape(x.shape)
 
     def max_axis(self, x: torch.Tensor, axes) -> torch.Tensor:
         """The elementwise max of ``x`` over the ranks of ``axes`` (an
@@ -395,16 +444,19 @@ def _coords(rank: int, shape: tuple) -> tuple:
 
 class CollectiveCensus:
     """The collectives one rank of a `census_mesh` would run, in order:
-    per call its op (``all-gather`` for `Mesh._parts`, the gather under
-    every sum and gather; ``all-reduce`` for `Mesh.max_axis`), the live
-    axes, the group size n, and the bytes of the rank's own operand b.
-    ``result_bytes`` is the op's result (n·b for a gather, b for a
-    reduce), as the reference's HLO census counts it. ``sent`` is b and
-    ``received`` the other ranks' (n − 1)·b: what an exchange of every
-    rank's operand moves, for the MAX too (gloo's own algorithms move
-    other amounts on the wire)."""
+    per call its op (``all-gather`` for `Mesh._gather`, under every
+    gather and the second phase of a sum; ``all-to-all`` for
+    `Mesh._exchange`, a sum's first phase; ``all-reduce`` for
+    `Mesh.max_axis`), the live axes, the group size n, and the bytes of
+    the rank's own operand b. ``result_bytes`` is the op's result (n·b
+    for a gather, b otherwise), as the reference's HLO census counts it.
+    ``sent`` and ``received`` are what an exchange of the operands moves:
+    b out and the other ranks' (n − 1)·b in for a gather and the MAX;
+    (n − 1)/n·b each way for an all-to-all, whose own block stays (gloo's
+    own algorithms move other amounts on the wire)."""
 
     MAX_OPS = 200                     # ops listed per kind, as the reference
+    OPS = ("all-gather", "all-to-all", "all-reduce")
 
     def __init__(self):
         self.calls = []
@@ -412,30 +464,37 @@ class CollectiveCensus:
     def record(self, op: str, axes: tuple, group: int, x: torch.Tensor
                ) -> None:
         b = x.numel() * x.element_size()
+        moved = (b * (group - 1) // group if op == "all-to-all"
+                 else b * (group - 1))
         self.calls.append({"op": op, "axes": list(axes), "group": group,
                            "bytes": b,
                            "result_bytes": b * group if op == "all-gather"
-                           else b, "received": b * (group - 1)})
+                           else b,
+                           "sent": moved if op == "all-to-all" else b,
+                           "received": moved})
 
     def summary(self) -> dict:
-        """{op: {count, result_bytes, sent, received, ops[≤200]}} and the
-        rank's totals (the reference's collective census, per rank)."""
+        """{op: {count, result_bytes, sent, received, ops[≤200]}}, the
+        rank's totals, and ``received_by_axes``: the bytes received over
+        each set of live axes ("data", "model", "data+model", …)."""
         out = {op: {"count": 0, "result_bytes": 0, "sent": 0,
-                    "received": 0, "ops": []}
-               for op in ("all-gather", "all-reduce")}
+                    "received": 0, "ops": []} for op in self.OPS}
+        by_axes: dict = {}
         for c in self.calls:
             rec = out[c["op"]]
             rec["count"] += 1
             rec["result_bytes"] += c["result_bytes"]
-            rec["sent"] += c["bytes"]
+            rec["sent"] += c["sent"]
             rec["received"] += c["received"]
+            key = "+".join(c["axes"])
+            by_axes[key] = by_axes.get(key, 0) + c["received"]
             if len(rec["ops"]) < self.MAX_OPS:
                 rec["ops"].append({"bytes": c["result_bytes"],
                                    "group": c["group"],
                                    "axes": c["axes"]})
-        out["total"] = {k: sum(out[op][k] for op in ("all-gather",
-                                                     "all-reduce"))
+        out["total"] = {k: sum(out[op][k] for op in self.OPS)
                         for k in ("count", "sent", "received")}
+        out["received_by_axes"] = by_axes
         return out
 
 

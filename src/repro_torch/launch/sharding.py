@@ -13,14 +13,17 @@ tuple's names), stored at rest.
   all-gather over the axes asked for; backward the fixed-order sum of the
   gradient over the ranks that computed different terms from the leaf (the
   batch axes of the pod, and "model" for a leaf the model ranks use
-  differently), then this rank's block.
+  differently), then this rank's block. `use_block` is the same for a
+  tensor-parallel leaf: gathered over its spec's axes but "model", so the
+  rank keeps its "model" block (columns of ``wq``, rows of ``wo``, …).
 * `copy_to` / `reduce_from` are Megatron's two operators for a region whose
   ranks each compute a part: forward identity / backward sum, and forward
   sum / backward identity (`copy_to_model`, `reduce_from_model` over
-  "model").
+  "model"); `gather_from_model` is its third, the ranks' blocks of an
+  activation concatenated along the last dim, backward the rank's slice.
 
-Every sum is `Mesh.sum_axis`'s all-gather and left fold in ascending rank
-order, so the bits do not depend on the backend.
+Every sum is `Mesh.sum_axis`'s left fold in ascending rank order (at
+all-reduce cost), so the bits do not depend on the backend.
 """
 from __future__ import annotations
 
@@ -119,8 +122,8 @@ def _sum_to_block(g: torch.Tensor, spec, mesh: Mesh, sum_axes
     the block of the dims whose axes are not summed first (it is the same
     for every rank summed with), then one fixed-order sum per block of the
     summed dims, each kept by the ranks that own it — a reduce-scatter
-    made of all-gathers, which holds one block of every rank at a time
-    instead of every rank's whole tensor. The bits are those of
+    made of sums, which holds one block at a time instead of the whole
+    tensor. The bits are those of
     ``shard_leaf(mesh.sum_axis(g, sum_axes), spec, mesh)``."""
     summed = set(mesh.live_axes(sum_axes))
     spec = tuple(spec or ())
@@ -154,6 +157,24 @@ def use_param(local: torch.Tensor, spec, mesh: Mesh, sum_axes=()
                              axis_tuple(sum_axes))
 
 
+def without_model(spec) -> tuple:
+    """``spec`` with "model" taken out of every entry (the dims a rank's
+    "model" block keeps whole)."""
+    def drop(entry):
+        axes = tuple(a for a in axis_tuple(entry) if a != "model")
+        return None if not axes else axes[0] if len(axes) == 1 else axes
+    return tuple(drop(e) for e in (spec or ()))
+
+
+def use_block(local: torch.Tensor, spec, mesh: Mesh, sum_axes=()
+              ) -> torch.Tensor:
+    """A tensor-parallel leaf as the computation uses it: its "model"
+    block, gathered over ``spec``'s other axes; its gradient, which the
+    rank computes for that block alone, summed over ``sum_axes`` (the
+    pod's batch axes) and cut to the stored block."""
+    return use_param(local, without_model(spec), mesh, sum_axes)
+
+
 class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes):
@@ -176,6 +197,19 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None, None
 
 
+class _GatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes, ctx.width = mesh, axes, x.shape[-1]
+        out = mesh.all_gather_axis(x, axes, -1)
+        return out.view_as(out) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        i = ctx.mesh.index_over(ctx.mesh.live_axes(ctx.axes))
+        return g.narrow(-1, i * ctx.width, ctx.width), None, None
+
+
 def copy_to(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
     """Identity forward; backward sums the gradient over ``axes`` (the
     input of a region whose ranks each compute a part from it)."""
@@ -194,3 +228,11 @@ def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return reduce_from(x, mesh, "model")
+
+
+def gather_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The "model" ranks' blocks of ``x`` concatenated along its last dim
+    in rank order (every rank holds the whole); backward keeps the rank's
+    slice of the gradient, which is right where every rank's use of the
+    whole is the same (put `copy_to_model` after it where it is not)."""
+    return _GatherLast.apply(x, _check(mesh), ("model",))

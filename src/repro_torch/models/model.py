@@ -42,14 +42,25 @@ trains through it.
 
 Under a pod mesh (a `launch.mesh.Mesh`, one rank per position) `forward`
 and `loss_fn` take this rank's shards (`param_specs`, the reference's
-rules) and its rows of the batch: every leaf is gathered on use
+rules) and its rows of the batch. The layers are tensor-parallel over
+"model" wherever the specs split a leaf there, as GSPMD runs the
+reference: GQA attention on the rank's columns of ``wq``/``wk``/``wv``
+and rows of ``wo``, the dense SwiGLU on its columns of ``w_gate``/
+``w_up`` and rows of ``w_down``, each region entered through
+`launch.sharding.copy_to_model` and closed by one sum over "model" of
+partial products kept at twice the activation precision
+(`_gqa_attention_tp`, `_swiglu`, `_row_parallel`); the LM head on the
+rank's vocabulary
+block, whose cross entropy never gathers the logits (`loss_fn`). Every
+other leaf — MLA's and Mamba2's included — is gathered on use
 (`launch.sharding.use_param`, its gradient summed over the pod's batch
-axes), the routed experts stay split over "model" (`moe.moe_ffn`) and the
+axes); the routed experts stay split over "model" (`moe.moe_ffn`) and the
 token embedding is vocab-parallel where "model" divides the vocabulary.
-The dense matmuls are not split over "model" (each model rank computes
-them whole). `prefill` and `decode_step` take the same per-rank contract,
-the decode cache as a `ShardedCache` of this rank's shards
-(``launch.specs.cache_specs``): kv heads, SSM heads and conv channels
+Over a one-rank "model" axis nothing is split and the code is the
+meshless code. `prefill` and `decode_step` take the same per-rank
+contract, the decode cache as a `ShardedCache` of this rank's shards
+(``launch.specs.cache_specs``): kv heads over "model" are the rank's own
+heads of the tensor-parallel projections, SSM heads and conv channels
 split over "model" run on the rank's block and are gathered in rank
 order; a sequence split over ranks runs the decode kernel on the rank's
 segment with its log-sum-exp, and the segments' partials are merged in
@@ -391,22 +402,17 @@ class _Split(NamedTuple):
 def _gqa_decode(q, kk, vv, cache, length, mesh=None,
                 split: _Split = _Split()):
     """Decode attention over the cache (written in place at length[b]),
-    [B, H, Dh]. Under a mesh, on this rank's shards of it: its kv heads
-    (and their query heads) where ``split.heads`` splits them, its segment
+    [B, H, Dh]. Under a mesh, on this rank's shards of it: ``q``, ``kk``
+    and ``vv`` hold the heads of the cache's block (its kv heads and
+    their query heads where ``split.heads`` splits them), and its segment
     of positions where ``split.seq`` does. The new K/V row goes only into
     the segment that holds position length[b]; kernel 4 runs on the local
     heads and positions at local length clamp(length + 1 − offset, 0,
     S_loc), with its f32 output and lse, and the segments' partials are
-    merged in rank order (`merge_partials`); the heads are gathered in
-    rank order. Every collective runs on every rank."""
+    merged in rank order (`merge_partials`). Every collective runs on
+    every rank."""
     ck, cv = cache["k"], cache["v"]
-    s_loc, hkv_l = ck.shape[1], ck.shape[2]
-    h_l = hkv_l * (q.shape[2] // kk.shape[2])
-    if split.heads:
-        j = mesh.index_over(split.heads)
-        q = q[:, :, j * h_l:(j + 1) * h_l]
-        kk = kk[:, :, j * hkv_l:(j + 1) * hkv_l]
-        vv = vv[:, :, j * hkv_l:(j + 1) * hkv_l]
+    s_loc = ck.shape[1]
     q1 = q[:, 0].contiguous()
     off = mesh.index_over(split.seq) * s_loc if split.seq else None
     L.place_at(ck, kk, length, off)
@@ -418,14 +424,21 @@ def _gqa_decode(q, kk, vv, cache, length, mesh=None,
         # the partials stay f32 until the merge rounds once, as the
         # kernel's own merge of splits does
         y = decode_attention(q1, ck, cv, local, lse, torch.float32)
-        y = merge_partials(mesh.all_gather_axis(y[None], split.seq, 0),
-                           mesh.all_gather_axis(lse[None], split.seq, 0)
-                           ).to(q1.dtype)
+        return merge_partials(mesh.all_gather_axis(y[None], split.seq, 0),
+                              mesh.all_gather_axis(lse[None], split.seq, 0)
+                              ).to(q1.dtype)
+    return decode_attention(q1, ck, cv, (length + 1).to(torch.int32))
+
+
+def _attend(q, kk, vv, cfg, cache, length, mesh, split):
+    """[B, S, H_q·Dh] of attention over the given heads: the train-path
+    flash attention, or `_gqa_decode` into ``cache``."""
+    b, s = q.shape[:2]
+    if cache is None:
+        y = L.flash_attention(q, kk, vv, causal=cfg.causal)
     else:
-        y = decode_attention(q1, ck, cv, (length + 1).to(torch.int32))
-    if split.heads:
-        y = mesh.all_gather_axis(y, split.heads, 1)
-    return y
+        y = _gqa_decode(q, kk, vv, cache, length, mesh, split)[:, None]
+    return y.reshape(b, s, -1)
 
 
 def _gqa_attention(x, p, cfg, rope, cache=None, length=None, mesh=None,
@@ -433,9 +446,13 @@ def _gqa_attention(x, p, cfg, rope, cache=None, length=None, mesh=None,
     """Standard GQA attention. rope: (cos, sin) of the positions, from
     `_rope`; cache: dict(k, v) [B,S,Hkv,Dh] or None. Under ``mesh`` the
     decode runs on this rank's shards of the cache, split as ``split``
-    says (`_gqa_decode`)."""
+    says (`_gqa_decode`), and where ``p`` holds "model" blocks of the
+    projections the layer is tensor-parallel (`_gqa_attention_tp`)."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    split = split or _Split()
+    if p["wq"].shape[-1] < h * dh:
+        return _gqa_attention_tp(x, p, cfg, rope, cache, length, mesh, split)
     q = torch.matmul(x, p["wq"])
     kk = torch.matmul(x, p["wk"])
     vv = torch.matmul(x, p["wv"])
@@ -447,16 +464,143 @@ def _gqa_attention(x, p, cfg, rope, cache=None, length=None, mesh=None,
     cos, sin = rope
     q = L.apply_rope(q, cos, sin)
     kk = L.apply_rope(kk, cos, sin)
-
-    if cache is None:
-        y = L.flash_attention(q, kk, vv, causal=cfg.causal)
-        new_cache = {"k": kk, "v": vv}
+    if cache is not None and split.heads:
+        # whole projections beside a cache whose kv heads are split (no
+        # tensor parallelism: the dp_only policy): the rank's heads, and
+        # every rank's outputs gathered back in rank order
+        j, hkv_l = mesh.index_over(split.heads), cache["k"].shape[2]
+        h_l = hkv_l * (h // hkv)
+        y = _attend(q[:, :, j * h_l:(j + 1) * h_l],
+                    kk[:, :, j * hkv_l:(j + 1) * hkv_l],
+                    vv[:, :, j * hkv_l:(j + 1) * hkv_l], cfg, cache, length,
+                    mesh, split)
+        y = mesh.all_gather_axis(y, split.heads, -1)
     else:
-        y = _gqa_decode(q, kk, vv, cache, length, mesh,
-                        split or _Split())[:, None]
-        new_cache = cache
-    y = y.reshape(b, s, h * dh)
-    return torch.matmul(y, p["wo"]), new_cache
+        y = _attend(q, kk, vv, cfg, cache, length, mesh, split)
+    return torch.matmul(y, p["wo"]), (cache if cache is not None else
+                                      {"k": kk, "v": vv})
+
+
+def _gqa_attention_tp(x, p, cfg, rope, cache, length, mesh, split):
+    """`_gqa_attention` with ``p`` holding this rank's "model" blocks:
+    the columns of ``wq`` (and ``bq``), of ``wk``/``wv`` where their width
+    divides over "model" (else the whole leaves), and the rows of ``wo``.
+
+    ``x`` enters through `copy_to_model`. Where the rank's columns of q
+    are whole heads (and, in decode, the cache splits the kv heads), the
+    attention runs on the rank's query heads, each reading kv head
+    ``h // G``: the rank's own k/v columns where they are whole heads,
+    else the whole k/v cut to the heads it needs. Otherwise q, k and v
+    are whole on every rank and every rank attends over every head (in
+    decode: over its segment of a cache split by positions, the partials
+    merged in rank order), then keeps its rows of the output. A whole
+    projection from split columns is gathered over "model" in rank order
+    as an activation, never as its weight. The rank's rows of the output
+    meet its rows of ``wo``, and `_row_parallel` sums the ranks'
+    products."""
+    b, s, _ = x.shape
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n, r = mesh.axis_size("model"), mesh.axis_index("model")
+    cos, sin = rope
+    xc = SH.copy_to_model(x, mesh)
+    bias = cfg.qkv_bias and "bq" in p
+
+    def proj(w, bn, src):
+        out = torch.matmul(src, p[w])
+        return out + p[bn] if bias else out
+
+    def whole(w, bn, heads):
+        """Every column of x @ w (+ b), as [B, S, heads, Dh]: the rank's
+        block gathered over "model" in rank order, or the whole leaf on
+        the (replicated) input."""
+        if p[w].shape[-1] < heads * dh:
+            out = SH.gather_from_model(proj(w, bn, xc), mesh)
+        else:
+            out = proj(w, bn, x)
+        return out.reshape(b, s, heads, dh)
+
+    def rope(t):
+        return L.apply_rope(t, cos, sin)
+
+    if h % n == 0 and (cache is None or split.heads):
+        h_l = h // n
+        q = rope(proj("wq", "bq", xc).reshape(b, s, h_l, dh))
+        if hkv % n == 0:
+            kk = rope(proj("wk", "bk", xc).reshape(b, s, hkv // n, dh))
+            vv = proj("wv", "bv", xc).reshape(b, s, hkv // n, dh)
+        else:
+            # the kv head of each of the rank's query heads, from the
+            # whole k/v (each rank uses other heads of it: copy_to_model)
+            g = h // hkv
+            lo, hi = (r * h_l) // g, ((r + 1) * h_l - 1) // g + 1
+            off = r * h_l - lo * g
+
+            def mine(t):
+                t = SH.copy_to_model(t, mesh).narrow(2, lo, hi - lo)
+                return t.repeat_interleave(g, dim=2).narrow(2, off, h_l)
+            kk = mine(rope(whole("wk", "bk", hkv)))
+            vv = mine(whole("wv", "bv", hkv))
+        y = _attend(q, kk, vv, cfg, cache, length, mesh, split)
+    else:
+        y = _attend(rope(whole("wq", "bq", h)), rope(whole("wk", "bk", hkv)),
+                    whole("wv", "bv", hkv), cfg, cache, length, mesh, split)
+        w = p["wo"].shape[0]
+        y = SH.copy_to_model(y, mesh).narrow(-1, r * w, w)
+    return _row_parallel(y, p["wo"], mesh), cache
+
+
+class _WideMatmul(torch.autograd.Function):
+    """``y @ w`` ([.., k] × [k, n]) whose output is its accumulator at
+    twice the inputs' precision, not rounded to their dtype: f32 for bf16
+    operands (cuBLAS's ``out_dtype`` on the card and on ``meta``, the f32
+    product of the casts on the CPU: exact products), f64 for f32 ones
+    (the f64 product of the casts: exact products). The backward is
+    ``y @ w``'s in the inputs' dtype, the gradient cast to it."""
+
+    @staticmethod
+    def forward(ctx, y, w):
+        ctx.save_for_backward(y, w)
+        y2 = y.reshape(-1, y.shape[-1])
+        if y.dtype == torch.float32:
+            out = torch.matmul(y2.to(torch.float64), w.to(torch.float64))
+        elif y.device.type == "cpu":
+            out = torch.matmul(y2.to(torch.float32), w.to(torch.float32))
+        else:
+            out = torch.mm(y2, w, out_dtype=torch.float32)
+        return out.reshape(y.shape[:-1] + (w.shape[-1],))
+
+    @staticmethod
+    def backward(ctx, g):
+        y, w = ctx.saved_tensors
+        g = g.to(y.dtype)
+        gw = torch.matmul(y.reshape(-1, y.shape[-1]).t(),
+                          g.reshape(-1, g.shape[-1]))
+        return torch.matmul(g, w.t()), gw
+
+
+def _row_parallel(y, w, mesh):
+    """Σ over "model" of ``y @ w`` on each rank's rows of ``w`` (its block
+    of the contraction), in rank order (`sharding.reduce_from_model`). Each
+    rank's partial product stays at twice the activation precision (f32
+    for a bf16 model, f64 for an f32 one: `_WideMatmul`) and the ranks'
+    are summed there, then rounded once to the activation dtype, as one
+    matmul over every row rounds once: partial products rounded to the
+    activation dtype and summed there move bf16 greedy tokens on the card
+    and f32 gradients past the pod mesh's gates, at twice the bytes over
+    "model"."""
+    return SH.reduce_from_model(_WideMatmul.apply(y, w), mesh).to(y.dtype)
+
+
+def _swiglu(x, fp, cfg, mesh=None):
+    """The dense SwiGLU; where ``fp`` holds this rank's "model" blocks
+    (columns of ``w_gate``/``w_up``, rows of ``w_down``) its hidden width
+    is split: `copy_to_model` in, `_row_parallel` out."""
+    if fp["w_gate"].shape[-1] < cfg.d_ff:
+        xc = SH.copy_to_model(x, mesh)
+        h = torch.nn.functional.silu(torch.matmul(xc, fp["w_gate"])) * \
+            torch.matmul(xc, fp["w_up"])
+        return _row_parallel(h, fp["w_down"], mesh)
+    return L.swiglu(x, fp["w_gate"], fp["w_up"], fp["w_down"])
 
 
 def _attn_ffn_layer(x, lp, cfg, rope, cache=None, length=None, moe=False,
@@ -484,7 +628,7 @@ def _attn_ffn_layer(x, lp, cfg, rope, cache=None, length=None, moe=False,
             sp = fp["shared"]
             fo = fo + L.swiglu(xf, sp["w_gate"], sp["w_up"], sp["w_down"])
     else:
-        fo = L.swiglu(xf, fp["w_gate"], fp["w_up"], fp["w_down"])
+        fo = _swiglu(xf, fp, cfg, mesh)
     return h + fo, new_cache
 
 
@@ -553,9 +697,7 @@ def _shared_attn_block(h, x0, sp, cfg, rope, cache=None, length=None,
                                    mesh, split)
     z2 = L.rms_norm(z + torch.cat([ao, torch.zeros_like(ao)], dim=-1),
                     sp["ln2"], cfg.norm_eps)
-    fp = sp["ffn"]
-    return h + ao + L.swiglu(z2, fp["w_gate"], fp["w_up"],
-                             fp["w_down"]), new_cache
+    return h + ao + _swiglu(z2, sp["ffn"], cfg, mesh), new_cache
 
 
 def _hybrid_segments(cfg) -> list:
@@ -668,30 +810,49 @@ def check_mesh(mesh, dev: torch.device | None = None) -> Mesh:
     return mesh
 
 
+# the leaves a layer uses as its "model" block where their spec splits them
+# there (tensor parallelism): GQA's projections and the dense SwiGLU, by
+# the name of the dict that holds them; the LM head at the top
+_TP_LEAVES = {"attn": ("wq", "wk", "wv", "wo", "bq", "bk", "bv"),
+              "ffn": ("w_gate", "w_up", "w_down")}
+
+
 class _Use:
     """The leaves of a rank's shards as the forward uses them under
     ``mesh``: gathered on use over their spec's axes (FSDP), their
     gradients summed over the pod's batch axes (`sharding.use_param`).
-    The token embedding keeps its block (vocab-parallel lookup) and a MoE
-    layer's FFN its shards (`moe.moe_ffn`)."""
+    A leaf whose spec splits it over "model" and that a tensor-parallel
+    layer computes with (`_TP_LEAVES`, GQA only: MLA's and Mamba2's keep
+    the gather; the LM head) keeps its "model" block (`sharding.
+    use_block`). The token embedding keeps its block (vocab-parallel
+    lookup) and a MoE layer's FFN its shards (`moe.moe_ffn`)."""
 
     def __init__(self, cfg: ModelConfig, mesh: Mesh, params):
-        self.mesh, self.params = mesh, params
+        self.mesh, self.params, self.cfg = mesh, params, cfg
         self.specs = _cached_specs(cfg, mesh)
         self.dp = dp_axes(cfg, mesh, ("pod",))
         self._layer_specs = {}
 
-    def _tree(self, tree, specs, keep=()):
+    def _tensor_parallel(self, path, spec) -> bool:
+        if "model" not in SH.spec_axes(spec):
+            return False
+        if path == ("lm_head",):
+            return True
+        return (len(path) > 1 and path[-1] in _TP_LEAVES.get(path[-2], ())
+                and not (path[-2] == "attn" and self.cfg.use_mla))
+
+    def _tree(self, tree, specs, keep=(), path=()):
         if isinstance(tree, dict):
-            return {k: (tree[k] if k in keep else self._tree(tree[k],
-                                                             specs[k]))
-                    for k in sorted(tree)}
-        return SH.use_param(tree, specs, self.mesh, self.dp)
+            return {k: (tree[k] if k in keep else self._tree(
+                tree[k], specs[k], path=path + (k,))) for k in sorted(tree)}
+        use = (SH.use_block if self._tensor_parallel(path, specs)
+               else SH.use_param)
+        return use(tree, specs, self.mesh, self.dp)
 
     def top(self, name):
         if name == "embed":          # the block as stored: see embed_lookup
             return SH.use_param(self.params[name], (), self.mesh, self.dp)
-        return self._tree(self.params[name], self.specs[name])
+        return self._tree(self.params[name], self.specs[name], path=(name,))
 
     def layer(self, lp, stack: str, keep=()):
         """One layer's dict of views of the stack ``stack`` (its specs
@@ -702,15 +863,17 @@ class _Use:
         return self._tree(lp, self._layer_specs[stack], keep)
 
 
-def forward(params, batch, cfg: ModelConfig, device="cuda",
-            mesh=None) -> torch.Tensor:
-    """Logits [B, S, V] of the full forward (causal but for the encoder).
+def _lm_head(x, w, cfg: ModelConfig, mesh=None):
+    """(logits, split): ``x`` through the LM head ``w``; where ``w`` is
+    this rank's vocabulary block (a tensor-parallel head) the logits are
+    that block, from `copy_to_model` of ``x``, and ``split`` is True."""
+    if w.shape[-1] < cfg.vocab:
+        return torch.matmul(SH.copy_to_model(x, mesh), w), True
+    return torch.matmul(x, w), False
 
-    Under ``mesh`` (a `launch.mesh.Mesh`), ``params`` are this rank's
-    shards (`param_specs`) and ``batch`` its rows: each leaf is gathered
-    on use, the routed experts stay over "model" (`moe.moe_ffn`) and the
-    token embedding is vocab-parallel where "model" divides the
-    vocabulary."""
+
+def _hidden(params, batch, cfg: ModelConfig, device, mesh):
+    """(final hidden states [B, S, d], the top leaves as used)."""
     dev = resolve_device(device)
     _check_batch(params, batch, dev)
     use = None if mesh is None else _Use(cfg, check_mesh(mesh, dev), params)
@@ -737,8 +900,23 @@ def forward(params, batch, cfg: ModelConfig, device="cuda",
         x = _hybrid(x, params, cfg, positions, use=use)
     else:
         raise ValueError(fam)
-    x = L.rms_norm(x, top["final_norm"], cfg.norm_eps)
-    return torch.matmul(x, top["lm_head"])
+    return L.rms_norm(x, top["final_norm"], cfg.norm_eps), top
+
+
+def forward(params, batch, cfg: ModelConfig, device="cuda",
+            mesh=None) -> torch.Tensor:
+    """Logits [B, S, V] of the full forward (causal but for the encoder).
+
+    Under ``mesh`` (a `launch.mesh.Mesh`), ``params`` are this rank's
+    shards (`param_specs`) and ``batch`` its rows: the leaves are gathered
+    on use but where a layer is tensor-parallel over "model" (`_Use`),
+    the routed experts stay over "model" (`moe.moe_ffn`) and the token
+    embedding is vocab-parallel where "model" divides the vocabulary. A
+    vocab-parallel LM head's blocks are gathered over "model" in rank
+    order: every rank returns the whole logits of its rows."""
+    x, top = _hidden(params, batch, cfg, device, mesh)
+    logits, split = _lm_head(x, top["lm_head"], cfg, mesh)
+    return SH.gather_from_model(logits, mesh) if split else logits
 
 
 def loss_fn(params, batch, cfg: ModelConfig, device="cuda",
@@ -756,8 +934,14 @@ def loss_fn(params, batch, cfg: ModelConfig, device="cuda",
     the count of positions are summed over the pod's batch axes (in a
     fixed order) before the division, as the reference's global mean
     over the pod's rows; the gradient is this rank's rows' part of it,
-    which `sharding.use_param` sums over those axes."""
-    logits = forward(params, batch, cfg, device, mesh)
+    which `sharding.use_param` sums over those axes. Where the LM head is
+    vocab-parallel the cross entropy is the reference's partitionable one
+    on the rank's vocabulary block, never gathered: the row max is the MAX
+    over "model" of the blocks' maxima, the f32 sums of exps and the label
+    logit (read on the rank that owns the label, 0 elsewhere) are summed
+    over "model" (`sharding.reduce_from_model`)."""
+    x, top = _hidden(params, batch, cfg, device, mesh)
+    logits, split = _lm_head(x, top["lm_head"], cfg, mesh)
     labels = batch["labels"].to(torch.int64)
     if cfg.frontend == "vision":            # loss only on text positions
         logits = logits[:, cfg.n_patches:, :]
@@ -765,11 +949,24 @@ def loss_fn(params, batch, cfg: ModelConfig, device="cuda",
         logits = logits[:, :-1, :]
         labels = labels[:, 1:]
     m = torch.amax(logits.detach(), dim=-1, keepdim=True)
+    if split:
+        m = mesh.max_axis(m, "model")
     shifted = logits - m                                       # model dtype
     sumexp = torch.sum(torch.exp(shifted.to(torch.float32)), dim=-1)
+    if split:
+        sumexp = SH.reduce_from_model(sumexp, mesh)
     lse = torch.log(sumexp) + m[..., 0].to(torch.float32)
-    lab_logit = torch.gather(logits, -1, labels.clamp(min=0)[..., None]
-                             )[..., 0].to(torch.float32)
+    if split:
+        v_l = logits.shape[-1]
+        local = labels - mesh.axis_index("model") * v_l
+        own = (local >= 0) & (local < v_l)
+        lab_logit = torch.gather(logits, -1, local.clamp(0, v_l - 1)[
+            ..., None])[..., 0].to(torch.float32)
+        lab_logit = SH.reduce_from_model(
+            torch.where(own, lab_logit, torch.zeros_like(lab_logit)), mesh)
+    else:
+        lab_logit = torch.gather(logits, -1, labels.clamp(min=0)[..., None]
+                                 )[..., 0].to(torch.float32)
     ll = lab_logit - lse
     mask = (labels >= 0).to(torch.float32)
     total, count = -torch.sum(ll * mask), torch.sum(mask)
@@ -787,8 +984,13 @@ def prefill(params, batch, cfg: ModelConfig, device="cuda",
     ``mesh``, `forward`'s per-rank contract: ``params`` this rank's
     shards, ``batch`` its rows (its block over the data axes when they
     divide B, else every row); the logits of those rows, the same on every
-    "model" rank."""
-    return forward(params, batch, cfg, device, mesh)[:, -1]
+    "model" rank (a vocab-parallel head computes and gathers the last
+    position's only)."""
+    x, top = _hidden(params, batch, cfg, device, mesh)
+    if top["lm_head"].shape[-1] < cfg.vocab:
+        logits, _ = _lm_head(x[:, -1:], top["lm_head"], cfg, mesh)
+        return SH.gather_from_model(logits, mesh)[:, 0]
+    return torch.matmul(x, top["lm_head"])[:, -1]
 
 
 # ===========================================================================
@@ -878,7 +1080,9 @@ def decode_step(params, cache, batch, length, cfg: ModelConfig,
     and returns (logits [B, V], cache).
 
     Under ``mesh`` (a `launch.mesh.Mesh`) the per-rank contract:
-    ``params`` are this rank's shards (`param_specs`), gathered on use;
+    ``params`` are this rank's shards (`param_specs`), used as `forward`
+    uses them (tensor-parallel over "model" where the specs split a leaf
+    there, else gathered on use);
     ``cache`` a `ShardedCache` of its shards as ``launch.specs.
     cache_specs(cfg, mesh, B, S)`` lays them out (the batch over the data
     axes where they divide B, else the sequence; kv heads, SSM heads and
@@ -930,7 +1134,9 @@ def decode_step(params, cache, batch, length, cfg: ModelConfig,
     else:                                   # hybrid
         x = _hybrid(x, params, cfg, positions, cache, length, use, splits)
     x = L.rms_norm(x, top["final_norm"], cfg.norm_eps)
-    logits = torch.matmul(x, top["lm_head"])
+    logits, split = _lm_head(x, top["lm_head"], cfg, mesh)
+    if split:
+        logits = SH.gather_from_model(logits, mesh)
     return logits[:, 0], cache
 
 

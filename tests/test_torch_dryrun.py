@@ -254,12 +254,15 @@ def test_collective_census_equals_a_gloo_step(tmp_path):
         assert tuple(real["coords"]) == tuple(rec["coords"])
         assert calls == real["calls"], r
         coll = rec["collectives"]
-        for op in ("all-gather", "all-reduce"):
+        for op in ("all-gather", "all-to-all", "all-reduce"):
             mine = [c for c in real["calls"] if c[0] == op]
+            # an all-to-all keeps the rank's own block of its operand
+            moved = [c[2] * (c[1] - 1) // c[1] if op == "all-to-all"
+                     else c[2] * (c[1] - 1) for c in mine]
             assert coll[op]["count"] == len(mine)
-            assert coll[op]["sent"] == sum(c[2] for c in mine)
-            assert coll[op]["received"] == sum(c[2] * (c[1] - 1)
-                                               for c in mine)
+            assert coll[op]["sent"] == (sum(moved) if op == "all-to-all"
+                                        else sum(c[2] for c in mine))
+            assert coll[op]["received"] == sum(moved)
         rb = DR.rank_bytes(cfg, dcfg, MESH.census_mesh(RK.SHAPE, RK.NAMES, r),
                            cell)["state"]
         for f in ("params", "prev_params", "ef"):

@@ -4,9 +4,10 @@ the CPU, the ("pod", "data", "model") mesh (2, 2, 1), started by
 
 Each rank takes one Track-B step of the smoke Qwen1.5-4B config and
 records, in order, every collective its mesh runs during the step: the
-all-gathers under `Mesh._parts` and the MAX all-reduces of
-`Mesh.max_axis`, each with its group size and the bytes of the rank's
-operand (`launch.mesh.CollectiveCensus`'s terms), and the bytes of the
+all-gathers of `Mesh._gather`, the all-to-alls of `Mesh._exchange` (a
+sum's first phase) and the MAX all-reduces of `Mesh.max_axis`, each with
+its group size and the bytes of the rank's operand
+(`launch.mesh.CollectiveCensus`'s terms), and the bytes of the
 state it holds. Imports torch and repro_torch only, never JAX.
 """
 from __future__ import annotations
@@ -26,17 +27,21 @@ BATCH, SEQ = 8, 32
 
 
 def count_collectives(calls: list):
-    """Wrap `Mesh._parts` and `Mesh.max_axis` (class-wide) so that every
-    collective run appends (op, group size, operand bytes) to ``calls``;
-    returns the undo."""
-    parts, mx = MESH.Mesh._parts, MESH.Mesh.max_axis
+    """Wrap `Mesh._gather`, `Mesh._exchange` and `Mesh.max_axis`
+    (class-wide) so that every collective run appends (op, group size,
+    operand bytes) to ``calls``; returns the undo."""
+    gather, exchange, mx = (MESH.Mesh._gather, MESH.Mesh._exchange,
+                            MESH.Mesh.max_axis)
 
-    def _parts(self, x, axes):
-        out = parts(self, x, axes)
-        if len(out) > 1:
-            calls.append(("all-gather", len(out),
-                          x.numel() * x.element_size()))
-        return out
+    def _gather(self, x, live):
+        calls.append(("all-gather", self.size_over(live),
+                      x.numel() * x.element_size()))
+        return gather(self, x, live)
+
+    def _exchange(self, x, live):
+        calls.append(("all-to-all", self.size_over(live),
+                      x.numel() * x.element_size()))
+        return exchange(self, x, live)
 
     def max_axis(self, x, axes):
         live = self.live_axes(axes)
@@ -45,10 +50,12 @@ def count_collectives(calls: list):
                           x.numel() * x.element_size()))
         return mx(self, x, axes)
 
-    MESH.Mesh._parts, MESH.Mesh.max_axis = _parts, max_axis
+    MESH.Mesh._gather, MESH.Mesh._exchange, MESH.Mesh.max_axis = (
+        _gather, _exchange, max_axis)
 
     def undo():
-        MESH.Mesh._parts, MESH.Mesh.max_axis = parts, mx
+        MESH.Mesh._gather, MESH.Mesh._exchange, MESH.Mesh.max_axis = (
+            gather, exchange, mx)
     return undo
 
 

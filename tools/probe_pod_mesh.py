@@ -8,8 +8,9 @@ point per spawn.
 
 The first argument is Qwen1.5-4B's depth on (pod 2, data 2, model 1)
 with error feedback; a second argument adds Llama-4-Scout at depth 1 on
-(1, 2, 2) without it. Every rank wraps ``Mesh._parts`` (the all-gather
-under every sum and gather) in a card synchronise and a host clock and
+(1, 2, 2) without it. Every rank wraps ``Mesh._gather`` and
+``Mesh._exchange`` (the all-gathers and all-to-alls under every gather
+and sum) in a card synchronise and a host clock and
 prints, after each training step, its cumulative collective seconds,
 calls and bytes received; phase 11's own checks and results follow
 (`phase_pod_mesh`). A point that fails (out of memory, say) prints its
@@ -36,22 +37,28 @@ def _rank(rank, world, store, out_dir, full):
     """`chip_smoke._pod_rank` with the mesh's collectives timed."""
     import repro_torch.launch.train as train
     from repro_torch.launch import mesh as MESH
-    orig = MESH.Mesh._parts
+    orig = {"_gather": MESH.Mesh._gather, "_exchange": MESH.Mesh._exchange}
     acc = {"s": 0.0, "calls": 0, "bytes_in": 0}
 
-    def timed(self, x, axes):
-        if x.is_cuda:
-            torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = orig(self, x, axes)
-        if x.is_cuda:
-            torch.cuda.synchronize()
-        acc["s"] += time.perf_counter() - t
-        acc["calls"] += 1
-        acc["bytes_in"] += x.numel() * x.element_size() * (len(out) - 1)
-        return out
+    def timed(name, keep):
+        def run(self, x, live):
+            if x.is_cuda:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig[name](self, x, live)
+            if x.is_cuda:
+                torch.cuda.synchronize()
+            n = self.size_over(live)
+            acc["s"] += time.perf_counter() - t
+            acc["calls"] += 1
+            acc["bytes_in"] += x.numel() * x.element_size() * (n - 1) // keep(
+                n)
+            return out
+        return run
 
-    MESH.Mesh._parts = timed
+    # an all-gather receives (n − 1)·b; an all-to-all (n − 1)/n·b
+    MESH.Mesh._gather = timed("_gather", lambda n: 1)
+    MESH.Mesh._exchange = timed("_exchange", lambda n: n)
     run = train.run
 
     def counted(*a, **k):
