@@ -211,7 +211,8 @@ Phases, each of which fails the script on any error:
 11. pod mesh: Track B over a ("pod", "data", "model") mesh on 4 gloo
    ranks sharing the card (`mesh.spawn`), each rank holding its shards
    of every leaf, the layers tensor-parallel over "model" where the
-   specs split a leaf there (attention, SwiGLU, LM head): (a) the
+   specs split a leaf there (GQA and MLA attention, SwiGLU, Mamba2, LM
+   head): (a) the
    reference's multipod config on (2, 2, 1) and Llama-4-Scout's smoke
    config on (1, 2, 2), 2 steps: the card's run
    twice bit-identical, and within loss rtol 2e-6, params rel. L2 1e-5
@@ -219,7 +220,9 @@ Phases, each of which fails the script on any error:
    of the meshless composition pod by pod on the card; (b) Qwen1.5-4B at
    full width and 4 layers on (2, 2, 1) with error feedback and (c)
    Llama-4-Scout at full width and depth 1 on (1, 2, 2) without error
-   feedback, 2 steps each through ``train.run`` — per rank the histogram twice and compress and
+   feedback and (d) Mamba2-780M at full width and 4 layers on (1, 2, 2)
+   with error feedback (the rank's SSM heads), 2 steps each through
+   ``train.run`` — per rank the histogram twice and compress and
    recover once per leaf shard and step at one row (shard widths checked
    in phase 3c), losses finite and the same on every rank, every shard's
    replicas bit-identical after every step, every expert shard under
@@ -243,27 +246,33 @@ Phases, each of which fails the script on any error:
    the sequence over "data", 2 steps (the partials merged across
    ranks); (c) Granite-34B at 1 layer on (1, 2), 2 ranks, its one kv
    head leaving the sequence to "model", batch 2, 1,022 of 1,024
-   positions, 2 steps — logits rel. L2 5e-2 at every step, greedy tokens
+   positions, 2 steps; (f) DeepSeek-V3 at depth 1 (its dense layer, MLA
+   on each rank's heads) on (1, 2), batch 2, 1,022 of 1,024 latent
+   positions, 2 steps plus make_prefill; (g) Zamba2-1.2B at 6 layers on
+   (1, 2), batch 2, prompt 4, 7 steps plus make_prefill (SSM and kv heads
+   over "model") — logits rel. L2 5e-2 at every step, greedy tokens
    equal on at least 90%, seeded positions untouched, written ones within
-   5e-2, ranks of a data block bit-identical, (f) the kernel launched
-   once per attention layer and step on every rank and its plain version
-   never; ms per step (the slowest rank), tokens/s, peak memory and
-   cache bytes per rank;
+   5e-2, ranks of a data block bit-identical, the kernel launched once
+   per GQA attention application and step on every rank (never for MLA)
+   and its plain version never; ms per step (the slowest rank), tokens/s,
+   peak memory and cache bytes per rank;
 13. census: `launch.dryrun`'s per-rank census on meta tensors, run in a
    worker process on the host from the end of the build (it needs no
-   card), held to the card: phase 11(b)'s second step on each rank (its
-   collectives in order with their group sizes and bytes, the
-   parameter and state bytes it holds, equal; the census's peak within
-   10% of `torch.cuda.max_memory_allocated` after a reset of the peak)
-   and phase 12(a)'s first decode step (collectives, parameter and cache
-   bytes equal, peak within 10%); (c) printed beside its census; every
-   collective counted with its live axes (the all-gathers, the
-   all-to-alls of each sum's first phase, the MAX all-reduces). Then
+   card), held to the card: the second step of phases 11(b) and 11(d) on
+   each rank (its collectives in order with their group sizes and bytes,
+   the parameter and state bytes it holds, equal; the census's peak
+   within 10% of `torch.cuda.max_memory_allocated` after a reset of the
+   peak) and the first decode step of phases 12(a) and 12(g)
+   (collectives, parameter and cache bytes equal, peak within 10%); (c)
+   printed beside its census; every collective counted with its live
+   axes (the all-gathers, the all-to-alls of each sum's first phase, the
+   all-to-all-v of ``w_zx``'s pieces, the MAX all-reduces). Then
    the census alone of Qwen1.5-4B `train_4k` on (16, 16), Qwen1.5-4B on
    (2, 2, 1) at 8 and 12 layers as phase 11 runs it (four ranks' peaks
    against the card's memory), and DeepSeek-V3 `train_4k` and
    `decode_32k` on (16, 16) and (2, 16, 16). Then one line per point of
-   11(b), (c) and 12(a)–(c), "tensor parallel <point>:": the bytes each
+   11(b)–(d) and 12(a)–(c), (f), (g), "tensor parallel <point>:": the
+   bytes each
    rank received over each set of axes ("model", "data", …) in its
    counted step (11's second, 12's first decode step), ms per step beside
    the point's before the layers were tensor-parallel, and the card;
@@ -3408,11 +3417,18 @@ POD_FLIP_MAX, POD_MOVED_MAX, POD_EF_REL, POD_ULPS = 16, 1, 5e-4, 2
 # without error feedback, whose residual (one more copy of every rank's
 # shards) does not fit beside the rest
 POD_QWEN_LAYERS = 4
+# (d) Mamba2-780M at 4 of its 48 layers on (1, 2, 2), with error
+# feedback: its Mamba2 layers tensor-parallel over "model" (the rank's
+# SSM heads, its blocks of w_zx, norm and w_out)
 POD_FULL = {
     "pod_qwen": ("qwen1.5-4b", POD_QWEN_LAYERS, (2, 2, 1),
                  ["--error-feedback"]),
     "pod_llama4": ("llama4-scout-17b-a16e", 1, (1, 2, 2), []),
+    "pod_mamba2": ("mamba2-780m", 4, (1, 2, 2), ["--error-feedback"]),
 }
+# the points whose second step phase 13 gates against the census (the
+# others are printed beside theirs)
+POD_CENSUS = ("pod_qwen", "pod_mamba2")
 POD_STEPS = 2
 POD_TRAIN_ARGS = ["--steps", str(POD_STEPS), "--batch", "8", "--seq", "128",
                   "--tau", "1", "--theta-u", "0.35", "--theta-d-max", "0.6",
@@ -3746,8 +3762,10 @@ def phase_pod_mesh(torch, checked_sizes, full=None) -> dict:
     composition pod by pod on the card at the POD_* gates. (b) Qwen1.5-4B
     at full width and POD_QWEN_LAYERS layers on (2, 2, 1) and (c)
     Llama-4-Scout at full width and depth 1 on (1, 2, 2) (no error
-    feedback), POD_STEPS steps each through ``train.run``: per rank the histogram twice and compress
-    and recover once per leaf shard and step, at one row; losses finite
+    feedback) and (d) Mamba2-780M at 4 layers on (1, 2, 2) with error
+    feedback, POD_STEPS steps each through ``train.run``: per rank the
+    histogram twice and compress and recover once per leaf shard and
+    step, at one row; losses finite
     and the same on every rank; every leaf shard's replicas bit-identical
     after every step; every expert shard under 2^31; ms per step (the
     slowest rank), tokens/s, peak memory per rank."""
@@ -3792,7 +3810,12 @@ SERVE_MESH_TIMEOUT_S = 600.0
 # cache seeded with 4,094 of 4,096 positions: the second step writes the
 # last position, and the two segments' softmax partials are merged across
 # ranks; (c) Granite-34B's one kv head does not divide "model", so its
-# sequence is split there, a cache seeded with 1,022 of 1,024 positions
+# sequence is split there, a cache seeded with 1,022 of 1,024 positions;
+# (f) DeepSeek-V3 at depth 1, its dense layer (MLA on each rank's 64 of
+# 128 heads, the dense SwiGLU), the latent cache seeded with 1,022 of
+# 1,024 positions, a 2-token prompt for make_prefill; (g) Zamba2-1.2B at 6
+# layers (one shared-block application): 64 SSM heads and 32 kv heads
+# over "model", 4,224 conv channels in blocks the heads do not align with
 SERVE_MESH = {
     "serve_mesh_qwen_batch": dict(arch="qwen1.5-4b", layers=2, shape=(2, 2),
                                   batch=4, seq=8, start=0, prompt=4,
@@ -3803,10 +3826,16 @@ SERVE_MESH = {
     "serve_mesh_granite": dict(arch="granite-34b", layers=1, shape=(1, 2),
                                batch=2, seq=1024, start=1022, prompt=1,
                                steps=2, seed=1),
+    "serve_mesh_deepseek": dict(arch="deepseek-v3-671b", layers=1,
+                                shape=(1, 2), batch=2, seq=1024, start=1022,
+                                prompt=2, steps=2, seed=2),
+    "serve_mesh_zamba2": dict(arch="zamba2-1.2b", layers=6, shape=(1, 2),
+                              batch=2, seq=8, start=0, prompt=4, steps=7,
+                              seed=3),
 }
 SERVE_MESH_LOCAL_STEPS = 3       # (d): the (1, 1) mesh against mesh=None
-SERVE_MESH_CENSUS = ("serve_mesh_qwen_batch",)   # its first decode step is
-                                                 # held to the census
+# the points whose first decode step is held to the census
+SERVE_MESH_CENSUS = ("serve_mesh_qwen_batch", "serve_mesh_zamba2")
 # (e): kernel 4's lse mode at each point's per-rank shapes: (B, H, Hkv, D,
 # S_loc, lengths to check, lengths timed)
 LSE_SHAPES = {
@@ -4111,20 +4140,23 @@ def _lse_mode(torch, timer) -> dict:
 
 
 def _serve_mesh_gates(torch, name, pt, base, ranks, smi) -> dict:
-    """(a)–(c), (f): every rank's logits of its rows within SERVE_REL_L2 of
-    the meshless run at every step and its greedy tokens on at least
-    SERVE_ARGMAX_AGREE of them (the prefill too); ranks of one data block
-    bit-identical; the decode kernel launched once per attention layer
-    and step on every rank and the plain twin never; the seeded positions
+    """(a)–(c), (f), (g): every rank's logits of its rows within
+    SERVE_REL_L2 of the meshless run at every step and its greedy tokens
+    on at least SERVE_ARGMAX_AGREE of them (the prefill too); ranks of one
+    data block bit-identical; the decode kernel launched once per GQA
+    attention application and step on every rank (none for MLA) and the
+    plain twin never; the seeded positions
     of the gathered cache untouched and the written ones within
     SERVE_REL_L2 of the meshless cache's."""
+    from repro_torch.models import model as M
     layers, steps = pt["cfg"].n_layers, pt["steps"]
+    want_launches = _attention_apps(M, pt["cfg"]) * steps
     rels, agree, same = [], [], {}
     for r, res in enumerate(ranks):
         what = f"{name} rank {r} {res['coords']}"
-        check(res["launches"] == layers * steps, f"{what}: "
+        check(res["launches"] == want_launches, f"{what}: "
               f"{res['launches']} decode kernel launches, want "
-              f"{layers * steps}")
+              f"{want_launches}")
         check(res["plain_calls"] == 0, f"{what}: the plain twin ran "
               f"{res['plain_calls']} times")
         check(res["seeded_untouched"], f"{what}: a seeded cache position "
@@ -4187,7 +4219,7 @@ def phase_serve_mesh(torch, smi) -> dict:
     runs of SERVE_MESH's points
     on the card (greedy tokens, which the ranks are then fed); (d) the
     (1, 1) local mesh bit-identical to mesh=None; then (a), (b) on 4
-    ranks and (c) on 2, gated by `_serve_mesh_gates`."""
+    ranks and (c), (f), (g) on 2, gated by `_serve_mesh_gates`."""
     from repro_torch.launch import mesh as MESH
     from repro_torch.models import model as M
     dev = torch.device("cuda")
@@ -4289,11 +4321,12 @@ EXACT_MEAN_RTOL = 1e-5           # Σ|x| summed in another order
 
 
 def _count_collectives(calls: list):
-    """Wrap `Mesh._gather`, `Mesh._exchange` and `Mesh.max_axis`
-    (class-wide, in this process) so that every collective a mesh runs
-    appends (op, group size, operand bytes, live axes joined by "+") to
-    ``calls``, in the census's terms (`launch.mesh.CollectiveCensus`);
-    returns the undo."""
+    """Wrap `Mesh._gather`, `Mesh._exchange`, `Mesh._exchange_v` and
+    `Mesh.max_axis` (class-wide, in this process) so that every collective
+    a mesh runs appends (op, group size, operand bytes, live axes joined
+    by "+") to ``calls``, in the census's terms (`launch.mesh.
+    CollectiveCensus`), and for an all-to-all-v the bytes received from
+    the other ranks; returns the undo."""
     from repro_torch.launch import mesh as MESH
     gather, exchange, mx = (MESH.Mesh._gather, MESH.Mesh._exchange,
                             MESH.Mesh.max_axis)
@@ -4308,6 +4341,13 @@ def _count_collectives(calls: list):
                       x.numel() * x.element_size(), "+".join(live)))
         return exchange(self, x, live)
 
+    def _exchange_v(self, x, live, send, recv):
+        me = self.index_over(live)
+        calls.append(("all-to-all-v", len(send),
+                      x.numel() * x.element_size(), "+".join(live),
+                      (sum(recv) - recv[me]) * x.element_size()))
+        return exchange_v(self, x, live, send, recv)
+
     def max_axis(self, x, axes):
         live = self.live_axes(axes)
         if live:
@@ -4315,22 +4355,27 @@ def _count_collectives(calls: list):
                           x.numel() * x.element_size(), "+".join(live)))
         return mx(self, x, axes)
 
+    exchange_v = MESH.Mesh._exchange_v
     MESH.Mesh._gather, MESH.Mesh._exchange, MESH.Mesh.max_axis = (
         _gather, _exchange, max_axis)
+    MESH.Mesh._exchange_v = _exchange_v
 
     def undo():
         MESH.Mesh._gather, MESH.Mesh._exchange, MESH.Mesh.max_axis = (
             gather, exchange, mx)
+        MESH.Mesh._exchange_v = exchange_v
     return undo
 
 
 def _received(calls) -> dict:
-    """{live axes: bytes received} of (op, group, bytes, axes) calls: the
-    other ranks' (n − 1)·b of a gather or MAX, (n − 1)/n·b of an
-    all-to-all (the census's terms)."""
+    """{live axes: bytes received} of (op, group, bytes, axes[, received])
+    calls: the other ranks' (n − 1)·b of a gather or MAX, (n − 1)/n·b of
+    an all-to-all, the other ranks' blocks of an all-to-all-v (the
+    census's terms)."""
     out = {}
-    for op, g, b, axes in calls:
-        out[axes] = out.get(axes, 0) + (b * (g - 1) // g if op == "all-to-all"
+    for op, g, b, axes, *got in calls:
+        out[axes] = out.get(axes, 0) + (got[0] if got else
+                                        b * (g - 1) // g if op == "all-to-all"
                                         else b * (g - 1))
     return out
 
@@ -4431,7 +4476,9 @@ def _census_worker(out_dir: str) -> None:
         mesh = MESH.census_mesh(shape, names, rank)
         rec = DR.census(cfg, cell, mesh, D.DistConfig(**dist))
         rec["calls"] = [[c["op"], c["group"], c["bytes"],
-                         "+".join(c["axes"])] for c in mesh.census.calls]
+                         "+".join(c["axes"])] + (
+                             [c["received"]] if c["op"] == "all-to-all-v"
+                             else []) for c in mesh.census.calls]
         for op in MESH.CollectiveCensus.OPS:
             rec["collectives"][op].pop("ops")
         out[name] = rec
@@ -4505,10 +4552,11 @@ def _census_summary(rec) -> dict:
 
 def phase_census(torch, res, pod, serve_mesh, smi) -> dict:
     """Phase 13: the census worker's records (`_census_worker`) against
-    phase 11(b)'s second step on every rank (`_census_gate`: collectives,
-    parameter and state bytes, peak) and phase 12(a)'s first decode step
-    (collectives, parameter and cache bytes, peak); phase 11(c) is
-    printed beside its census, not gated. Then the host-only cells of
+    the second step of phases 11(b) and 11(d) on every rank
+    (`_census_gate`: collectives, parameter and state bytes, peak) and
+    the first decode step of phases 12(a) and 12(g) (collectives,
+    parameter and cache bytes, peak); phase 11(c) is printed beside its
+    census, not gated. Then the host-only cells of
     CENSUS_CELLS, Qwen1.5-4B's (2, 2, 1) points as four ranks' peaks
     against the card's memory."""
     census = res["census"]
@@ -4517,7 +4565,7 @@ def phase_census(torch, res, pod, serve_mesh, smi) -> dict:
         per = pod[name]["census_step_per_rank"]
         for r, meas in enumerate(per):
             rec = census[f"{name}/rank{r}"]
-            if name == "pod_qwen":
+            if name in POD_CENSUS:
                 out["gated"][f"{name}/rank{r}"] = _census_gate(
                     f"census {name} rank {r}", rec, meas, True)
             else:
@@ -4557,11 +4605,12 @@ BEFORE_TP_MS_PER_STEP = {"pod_qwen": 8795.059239000011,
 
 
 def phase_tp_traffic(pod, serve_mesh, smi) -> dict:
-    """Per point of phases 11(b), (c) and 12(a)–(c): the bytes each rank
-    received over each set of live axes ("model", "data", …) in the step
-    whose collectives were counted (phase 11's second training step,
-    phase 12's first decode step), ms per step beside the same point's
-    before tensor parallelism, and the card."""
+    """Per point of phases 11(b)–(d) and 12(a)–(c), (f), (g): the bytes
+    each rank received over each set of live axes ("model", "data", …) in
+    the step whose collectives were counted (phase 11's second training
+    step, phase 12's first decode step), ms per step beside the same
+    point's before tensor parallelism (None for a point added since),
+    and the card."""
     out = {}
     points = [(n, pod[n]) for n in POD_FULL] + [(n, serve_mesh[n])
                                                 for n in SERVE_MESH]
@@ -4570,7 +4619,7 @@ def phase_tp_traffic(pod, serve_mesh, smi) -> dict:
             "card": smi, "received_per_step_per_rank": [
                 _received(c["calls"]) for c in res["census_step_per_rank"]],
             "ms_per_step": res["ms_per_step"],
-            "ms_per_step_before_tp": BEFORE_TP_MS_PER_STEP[name]}
+            "ms_per_step_before_tp": BEFORE_TP_MS_PER_STEP.get(name)}
         print(f"tensor parallel {name}: " + json.dumps(out[name]))
     return out
 

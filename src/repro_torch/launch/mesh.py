@@ -39,8 +39,10 @@ in a `CollectiveCensus` instead of run (``launch.dryrun``'s census on
 Every collective of a `Mesh` is an all-gather (`Mesh.all_gather_axis`),
 a sum folded left in ascending rank order at all-reduce cost (an
 all-to-all, each rank's fold of its block, an all-gather:
-`Mesh.sum_axis`) or an all-reduce MAX (`Mesh.max_axis`), so its bits do
-not depend on the backend's reduce tree.
+`Mesh.sum_axis`), an all-to-all of uneven blocks (`Mesh.exchange_axis`,
+which moves pieces of a weight between ranks) or an all-reduce MAX
+(`Mesh.max_axis`), so its bits do not depend on the backend's reduce
+tree.
 
 Nothing touches ``torch.distributed`` on import. ``shard_map_compat`` and
 ``host_local_array`` have no counterpart here (SPMD ranks take their
@@ -313,6 +315,24 @@ class Mesh:
         dist.all_to_all_single(out, x, group=self.groups[frozenset(live)])
         return out
 
+    def _exchange_v(self, x: torch.Tensor, live: tuple, send: tuple,
+                    recv: tuple) -> torch.Tensor:
+        """One all-to-all over ``live`` with blocks of any length: ``x``
+        (1-D, ``sum(send)`` long) is cut into blocks of ``send[j]``
+        elements, block j going to group rank j; the result holds the
+        ``recv[j]`` elements from group rank j, in group rank order."""
+        out = x.new_empty(sum(recv))
+        if self.abstract:
+            me = self.index_over(live)
+            self._census().record("all-to-all-v", live, len(send), x,
+                                  moved=(sum(send) - send[me],
+                                         sum(recv) - recv[me]),
+                                  result=out)
+            return out
+        dist.all_to_all_single(out, x, list(recv), list(send),
+                               group=self.groups[frozenset(live)])
+        return out
+
     def _in_order(self, parts: list, axes, live: tuple) -> list:
         """``parts`` in group rank order (ascending in mesh order)
         reordered row-major over ``axes`` in the order given."""
@@ -373,6 +393,18 @@ class Mesh:
             blk)), axes, live))
         out = torch.cat(self._gather(mine.contiguous(), live))
         return out[:x.numel()].reshape(x.shape)
+
+    def exchange_axis(self, x: torch.Tensor, axes, send, recv
+                      ) -> torch.Tensor:
+        """An all-to-all over ``axes`` with uneven blocks (`_exchange_v`):
+        ``send[j]`` elements of the 1-D ``x`` to group rank j and
+        ``recv[j]`` from it, the group ranks row-major over the live axes
+        in mesh order. Over one rank ``x`` itself."""
+        live = self.live_axes(axes)
+        if not live:
+            return x
+        return self._exchange_v(x.contiguous(), live, tuple(send),
+                                tuple(recv))
 
     def max_axis(self, x: torch.Tensor, axes) -> torch.Tensor:
         """The elementwise max of ``x`` over the ranks of ``axes`` (an
@@ -446,32 +478,40 @@ class CollectiveCensus:
     """The collectives one rank of a `census_mesh` would run, in order:
     per call its op (``all-gather`` for `Mesh._gather`, under every
     gather and the second phase of a sum; ``all-to-all`` for
-    `Mesh._exchange`, a sum's first phase; ``all-reduce`` for
+    `Mesh._exchange`, a sum's first phase; ``all-to-all-v`` for
+    `Mesh._exchange_v`, blocks of any length; ``all-reduce`` for
     `Mesh.max_axis`), the live axes, the group size n, and the bytes of
     the rank's own operand b. ``result_bytes`` is the op's result (n·b
     for a gather, b otherwise), as the reference's HLO census counts it.
     ``sent`` and ``received`` are what an exchange of the operands moves:
     b out and the other ranks' (n − 1)·b in for a gather and the MAX;
     (n − 1)/n·b each way for an all-to-all, whose own block stays (gloo's
-    own algorithms move other amounts on the wire)."""
+    own algorithms move other amounts on the wire); the blocks to and
+    from the other ranks for an all-to-all-v."""
 
     MAX_OPS = 200                     # ops listed per kind, as the reference
-    OPS = ("all-gather", "all-to-all", "all-reduce")
+    OPS = ("all-gather", "all-to-all", "all-to-all-v", "all-reduce")
 
     def __init__(self):
         self.calls = []
 
-    def record(self, op: str, axes: tuple, group: int, x: torch.Tensor
-               ) -> None:
+    def record(self, op: str, axes: tuple, group: int, x: torch.Tensor,
+               moved: tuple | None = None,
+               result: torch.Tensor | None = None) -> None:
+        """One call on operand ``x``; ``moved`` (elements sent, received)
+        and ``result`` for an all-to-all-v, whose blocks are uneven."""
         b = x.numel() * x.element_size()
-        moved = (b * (group - 1) // group if op == "all-to-all"
-                 else b * (group - 1))
+        if moved is not None:
+            sent, received = (m * x.element_size() for m in moved)
+            out = result.numel() * result.element_size()
+        else:
+            received = (b * (group - 1) // group if op == "all-to-all"
+                        else b * (group - 1))
+            sent = received if op == "all-to-all" else b
+            out = b * group if op == "all-gather" else b
         self.calls.append({"op": op, "axes": list(axes), "group": group,
-                           "bytes": b,
-                           "result_bytes": b * group if op == "all-gather"
-                           else b,
-                           "sent": moved if op == "all-to-all" else b,
-                           "received": moved})
+                           "bytes": b, "result_bytes": out, "sent": sent,
+                           "received": received})
 
     def summary(self) -> dict:
         """{op: {count, result_bytes, sent, received, ops[≤200]}}, the

@@ -16,6 +16,9 @@ tuple's names), stored at rest.
   differently), then this rank's block. `use_block` is the same for a
   tensor-parallel leaf: gathered over its spec's axes but "model", so the
   rank keeps its "model" block (columns of ``wq``, rows of ``wo``, …).
+* `regroup_model` turns a rank's contiguous "model" block of a leaf made
+  of segments end to end (Mamba2's ``w_zx``, [z | x]) into its block of
+  every segment, moving the pieces between ranks in one all-to-all.
 * `copy_to` / `reduce_from` are Megatron's two operators for a region whose
   ranks each compute a part: forward identity / backward sum, and forward
   sum / backward identity (`copy_to_model`, `reduce_from_model` over
@@ -173,6 +176,75 @@ def use_block(local: torch.Tensor, spec, mesh: Mesh, sum_axes=()
     rank computes for that block alone, summed over ``sum_axes`` (the
     pod's batch axes) and cut to the stored block."""
     return use_param(local, without_model(spec), mesh, sum_axes)
+
+
+def _move_pieces(t: torch.Tensor, have: list, want: list, mesh: Mesh
+                 ) -> torch.Tensor:
+    """``t`` [P, m]: this rank's pieces. ``have[j]`` / ``want[j]`` list
+    the ids of the pieces "model" rank j holds / wants, in order; each id
+    is held by one rank and wanted by one. One all-to-all over "model"
+    (`Mesh.exchange_axis`) sends every piece to the rank that wants it;
+    returns [len(want[me]), m] in that order."""
+    me, m = mesh.axis_index("model"), t.shape[1]
+    out_ids = [[k for k in w if k in have[me]] for w in want]
+    in_ids = [[k for k in want[me] if k in h] for h in have]
+    send = _rows(t, [have[me].index(k) for ids in out_ids for k in ids])
+    got = mesh.exchange_axis(send.reshape(-1), "model",
+                             [len(i) * m for i in out_ids],
+                             [len(i) * m for i in in_ids]).view(-1, m)
+    arrived = [k for ids in in_ids for k in ids]
+    return _rows(got, [arrived.index(k) for k in want[me]])
+
+
+def _rows(t: torch.Tensor, order: list) -> torch.Tensor:
+    """Rows ``order`` of ``t`` (slices: no index tensor to copy to the
+    device)."""
+    return torch.cat([t[i:i + 1] for i in order])
+
+
+def _regroup(x: torch.Tensor, groups: int, have: list, want: list,
+             mesh: Mesh) -> torch.Tensor:
+    """`_move_pieces` of the ``groups`` equal pieces of ``x``'s last dim."""
+    lead, w = x.shape[:-1], x.shape[-1] // groups
+    pieces = x.reshape(*lead, groups, w).movedim(-2, 0).reshape(groups, -1)
+    out = _move_pieces(pieces, have, want, mesh)
+    return out.reshape(groups, *lead, w).movedim(0, -2).reshape(x.shape)
+
+
+class _Regroup(torch.autograd.Function):
+    """Forward: the rank's stored block, pieces r·G … r·G + G − 1 of the
+    n·G pieces of the whole last dim, becomes its piece of every segment
+    (ids g·n + r). Backward: each piece's gradient goes back to the rank
+    that stores it."""
+
+    @staticmethod
+    def forward(ctx, local, groups, mesh):
+        n = mesh.axis_size("model")
+        ctx.groups, ctx.mesh = groups, mesh
+        ctx.stored = [list(range(j * groups, (j + 1) * groups))
+                      for j in range(n)]
+        ctx.used = [list(range(j, n * groups, n)) for j in range(n)]
+        return _regroup(local, groups, ctx.stored, ctx.used, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _regroup(g, ctx.groups, ctx.used, ctx.stored,
+                        ctx.mesh), None, None
+
+
+def regroup_model(local: torch.Tensor, groups: int, mesh: Mesh
+                  ) -> torch.Tensor:
+    """A leaf whose last dim is ``groups`` equal segments laid end to end
+    (Mamba2's ``w_zx``: [z | x]) and whose spec splits that dim over
+    "model" in contiguous blocks, as the rank's block of every segment,
+    concatenated ([z_r | x_r], where on two ranks rank 0 stores all of z
+    and rank 1 all of x). Each segment must divide over "model". The
+    pieces move in one all-to-all over "model"; a rank receives at most
+    its own block's size. The gradient goes back to the stored layout the
+    same way (exact: nothing is summed). Over one rank the block itself."""
+    if mesh.axis_size("model") == 1:
+        return local
+    return _Regroup.apply(local, groups, _check(mesh))
 
 
 class _CopyTo(torch.autograd.Function):

@@ -1,5 +1,7 @@
 """Shared NN primitives of the LM zoo, op for op as ``repro.models.layers``:
-init helpers, RMSNorm (plain and gated), RoPE, SwiGLU, and attention.
+init helpers, RMSNorm (plain and gated), RoPE, SwiGLU, and attention; and
+the tensor-parallel pieces the layers share under a mesh: the gated norm
+of a row split over "model" and the row-parallel product.
 
 Weights keep the reference's ``[d_in, d_out]`` layout (``x @ W``), so a
 reference pytree carries over as a copy. Every f32 upcast and cast back to
@@ -15,6 +17,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch import sharding as SH
 
 NEG_INF = -1e30
 
@@ -95,11 +99,72 @@ def gated_rms_norm(x: torch.Tensor, gate: torch.Tensor, scale: torch.Tensor,
                     eps)
 
 
+def gated_rms_norm_split(x: torch.Tensor, gate: torch.Tensor,
+                         scale: torch.Tensor, eps: float, mesh,
+                         width: int) -> torch.Tensor:
+    """`gated_rms_norm` of a row of ``width`` split over "model": ``x``,
+    ``gate`` and ``scale`` are the rank's block of it. The rank's f32 sum
+    of squares is summed over "model" in rank order; the sum enters
+    through `copy_to_model` too, since each rank's outputs use it with
+    other elements (its gradient is the sum of the ranks')."""
+    g = (x * F.silu(gate.to(torch.float32)).to(x.dtype)).to(torch.float32)
+    ss = SH.copy_to_model(SH.reduce_from_model(
+        torch.sum(g * g, dim=-1, keepdim=True), mesh), mesh)
+    out = g * torch.rsqrt(ss / width + eps) * scale.to(torch.float32)
+    return out.to(x.dtype)
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     g = torch.matmul(x, w_gate)
     u = torch.matmul(x, w_up)
     return torch.matmul(F.silu(g) * u, w_down)
+
+
+# ---------------------------------------------------------------------------
+# Row-parallel products (tensor parallelism over "model")
+# ---------------------------------------------------------------------------
+
+class WideMatmul(torch.autograd.Function):
+    """``y @ w`` ([.., k] × [k, n]) whose output is its accumulator at
+    twice the inputs' precision, not rounded to their dtype: f32 for bf16
+    operands (cuBLAS's ``out_dtype`` on the card and on ``meta``, the f32
+    product of the casts on the CPU: exact products), f64 for f32 ones
+    (the f64 product of the casts: exact products). The backward is
+    ``y @ w``'s in the inputs' dtype, the gradient cast to it."""
+
+    @staticmethod
+    def forward(ctx, y, w):
+        ctx.save_for_backward(y, w)
+        y2 = y.reshape(-1, y.shape[-1])
+        if y.dtype == torch.float32:
+            out = torch.matmul(y2.to(torch.float64), w.to(torch.float64))
+        elif y.device.type == "cpu":
+            out = torch.matmul(y2.to(torch.float32), w.to(torch.float32))
+        else:
+            out = torch.mm(y2, w, out_dtype=torch.float32)
+        return out.reshape(y.shape[:-1] + (w.shape[-1],))
+
+    @staticmethod
+    def backward(ctx, g):
+        y, w = ctx.saved_tensors
+        g = g.to(y.dtype)
+        gw = torch.matmul(y.reshape(-1, y.shape[-1]).t(),
+                          g.reshape(-1, g.shape[-1]))
+        return torch.matmul(g, w.t()), gw
+
+
+def row_parallel(y, w, mesh):
+    """Σ over "model" of ``y @ w`` on each rank's rows of ``w`` (its block
+    of the contraction), in rank order (`sharding.reduce_from_model`). Each
+    rank's partial product stays at twice the activation precision (f32
+    for a bf16 model, f64 for an f32 one: `WideMatmul`) and the ranks'
+    are summed there, then rounded once to the activation dtype, as one
+    matmul over every row rounds once: partial products rounded to the
+    activation dtype and summed there move bf16 greedy tokens on the card
+    and f32 gradients past the pod mesh's gates, at twice the bytes over
+    "model"."""
+    return SH.reduce_from_model(WideMatmul.apply(y, w), mesh).to(y.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -49,20 +49,25 @@ and rows of ``wo``, the dense SwiGLU on its columns of ``w_gate``/
 ``w_up`` and rows of ``w_down``, each region entered through
 `launch.sharding.copy_to_model` and closed by one sum over "model" of
 partial products kept at twice the activation precision
-(`_gqa_attention_tp`, `_swiglu`, `_row_parallel`); the LM head on the
-rank's vocabulary
-block, whose cross entropy never gathers the logits (`loss_fn`). Every
-other leaf — MLA's and Mamba2's included — is gathered on use
-(`launch.sharding.use_param`, its gradient summed over the pod's batch
-axes); the routed experts stay split over "model" (`moe.moe_ffn`) and the
-token embedding is vocab-parallel where "model" divides the vocabulary.
+(`_gqa_attention_tp`, `_swiglu`, `layers.row_parallel`); MLA on the rank's
+heads of ``w_uq``/``w_uk``/``w_uv``, their outputs gathered before the
+replicated ``w_o`` (`mla`); Mamba2 on the rank's SSM heads, its block of
+z and x from ``w_zx``, a gated norm summed over "model" and the rank's
+rows of ``w_out`` (`mamba2.mamba_block`); the LM head on the rank's
+vocabulary block, whose cross entropy never gathers the logits
+(`loss_fn`). Every other leaf is replicated over "model" and gathered on
+use over the batch axes (`launch.sharding.use_param`, its gradient summed
+over the pod's batch axes); the routed experts stay split over "model"
+(`moe.moe_ffn`) and the token embedding is vocab-parallel where "model"
+divides the vocabulary. No leaf is gathered whole over "model".
 Over a one-rank "model" axis nothing is split and the code is the
 meshless code. `prefill` and `decode_step` take the same per-rank
 contract, the decode cache as a `ShardedCache` of this rank's shards
-(``launch.specs.cache_specs``): kv heads over "model" are the rank's own
-heads of the tensor-parallel projections, SSM heads and conv channels
-split over "model" run on the rank's block and are gathered in rank
-order; a sequence split over ranks runs the decode kernel on the rank's
+(``launch.specs.cache_specs``): kv heads and SSM heads over "model" are
+the rank's own heads of the tensor-parallel layers, conv channels split
+over "model" run on the rank's block and are gathered in rank order
+(with whole projections, under the dp_only policy, the SSM heads too);
+a sequence split over ranks runs the decode kernel on the rank's
 segment with its log-sum-exp, and the segments' partials are merged in
 rank order (``kernels.flash_attention.merge_partials``; MLA's latents
 too).
@@ -496,7 +501,7 @@ def _gqa_attention_tp(x, p, cfg, rope, cache, length, mesh, split):
     merged in rank order), then keeps its rows of the output. A whole
     projection from split columns is gathered over "model" in rank order
     as an activation, never as its weight. The rank's rows of the output
-    meet its rows of ``wo``, and `_row_parallel` sums the ranks'
+    meet its rows of ``wo``, and `layers.row_parallel` sums the ranks'
     products."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -546,60 +551,18 @@ def _gqa_attention_tp(x, p, cfg, rope, cache, length, mesh, split):
                     whole("wv", "bv", hkv), cfg, cache, length, mesh, split)
         w = p["wo"].shape[0]
         y = SH.copy_to_model(y, mesh).narrow(-1, r * w, w)
-    return _row_parallel(y, p["wo"], mesh), cache
-
-
-class _WideMatmul(torch.autograd.Function):
-    """``y @ w`` ([.., k] × [k, n]) whose output is its accumulator at
-    twice the inputs' precision, not rounded to their dtype: f32 for bf16
-    operands (cuBLAS's ``out_dtype`` on the card and on ``meta``, the f32
-    product of the casts on the CPU: exact products), f64 for f32 ones
-    (the f64 product of the casts: exact products). The backward is
-    ``y @ w``'s in the inputs' dtype, the gradient cast to it."""
-
-    @staticmethod
-    def forward(ctx, y, w):
-        ctx.save_for_backward(y, w)
-        y2 = y.reshape(-1, y.shape[-1])
-        if y.dtype == torch.float32:
-            out = torch.matmul(y2.to(torch.float64), w.to(torch.float64))
-        elif y.device.type == "cpu":
-            out = torch.matmul(y2.to(torch.float32), w.to(torch.float32))
-        else:
-            out = torch.mm(y2, w, out_dtype=torch.float32)
-        return out.reshape(y.shape[:-1] + (w.shape[-1],))
-
-    @staticmethod
-    def backward(ctx, g):
-        y, w = ctx.saved_tensors
-        g = g.to(y.dtype)
-        gw = torch.matmul(y.reshape(-1, y.shape[-1]).t(),
-                          g.reshape(-1, g.shape[-1]))
-        return torch.matmul(g, w.t()), gw
-
-
-def _row_parallel(y, w, mesh):
-    """Σ over "model" of ``y @ w`` on each rank's rows of ``w`` (its block
-    of the contraction), in rank order (`sharding.reduce_from_model`). Each
-    rank's partial product stays at twice the activation precision (f32
-    for a bf16 model, f64 for an f32 one: `_WideMatmul`) and the ranks'
-    are summed there, then rounded once to the activation dtype, as one
-    matmul over every row rounds once: partial products rounded to the
-    activation dtype and summed there move bf16 greedy tokens on the card
-    and f32 gradients past the pod mesh's gates, at twice the bytes over
-    "model"."""
-    return SH.reduce_from_model(_WideMatmul.apply(y, w), mesh).to(y.dtype)
+    return L.row_parallel(y, p["wo"], mesh), cache
 
 
 def _swiglu(x, fp, cfg, mesh=None):
     """The dense SwiGLU; where ``fp`` holds this rank's "model" blocks
     (columns of ``w_gate``/``w_up``, rows of ``w_down``) its hidden width
-    is split: `copy_to_model` in, `_row_parallel` out."""
+    is split: `copy_to_model` in, `layers.row_parallel` out."""
     if fp["w_gate"].shape[-1] < cfg.d_ff:
         xc = SH.copy_to_model(x, mesh)
         h = torch.nn.functional.silu(torch.matmul(xc, fp["w_gate"])) * \
             torch.matmul(xc, fp["w_up"])
-        return _row_parallel(h, fp["w_down"], mesh)
+        return L.row_parallel(h, fp["w_down"], mesh)
     return L.swiglu(x, fp["w_gate"], fp["w_up"], fp["w_down"])
 
 
@@ -609,7 +572,8 @@ def _attn_ffn_layer(x, lp, cfg, rope, cache=None, length=None, moe=False,
     xa = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
     if cfg.use_mla:
         if cache is None:
-            ao, new_cache = MLA.mla_attention_train(xa, lp["attn"], cfg, rope)
+            ao, new_cache = MLA.mla_attention_train(xa, lp["attn"], cfg, rope,
+                                                    mesh)
         else:
             ao, new_cache = MLA.mla_attention_decode(
                 xa, lp["attn"], cfg, cache, length, rope, mesh,
@@ -811,10 +775,13 @@ def check_mesh(mesh, dev: torch.device | None = None) -> Mesh:
 
 
 # the leaves a layer uses as its "model" block where their spec splits them
-# there (tensor parallelism): GQA's projections and the dense SwiGLU, by
-# the name of the dict that holds them; the LM head at the top
-_TP_LEAVES = {"attn": ("wq", "wk", "wv", "wo", "bq", "bk", "bv"),
-              "ffn": ("w_gate", "w_up", "w_down")}
+# there (tensor parallelism), by the name of the dict that holds them: GQA's
+# projections and MLA's up-projections, the dense SwiGLU, Mamba2's in- and
+# out-projections and gated-norm scale; the LM head at the top
+_TP_LEAVES = {"attn": ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_uq",
+                       "w_uk", "w_uv"),
+              "ffn": ("w_gate", "w_up", "w_down"),
+              "mamba": ("w_zx", "w_out", "norm")}
 
 
 class _Use:
@@ -822,10 +789,11 @@ class _Use:
     ``mesh``: gathered on use over their spec's axes (FSDP), their
     gradients summed over the pod's batch axes (`sharding.use_param`).
     A leaf whose spec splits it over "model" and that a tensor-parallel
-    layer computes with (`_TP_LEAVES`, GQA only: MLA's and Mamba2's keep
-    the gather; the LM head) keeps its "model" block (`sharding.
-    use_block`). The token embedding keeps its block (vocab-parallel
-    lookup) and a MoE layer's FFN its shards (`moe.moe_ffn`)."""
+    layer computes with (`_TP_LEAVES`: GQA's, MLA's, the dense SwiGLU's
+    and Mamba2's; the LM head) keeps its "model" block (`sharding.
+    use_block`), so no leaf is gathered whole over "model". The token
+    embedding keeps its block (vocab-parallel lookup) and a MoE layer's
+    FFN its shards (`moe.moe_ffn`)."""
 
     def __init__(self, cfg: ModelConfig, mesh: Mesh, params):
         self.mesh, self.params, self.cfg = mesh, params, cfg
@@ -838,8 +806,7 @@ class _Use:
             return False
         if path == ("lm_head",):
             return True
-        return (len(path) > 1 and path[-1] in _TP_LEAVES.get(path[-2], ())
-                and not (path[-2] == "attn" and self.cfg.use_mla))
+        return len(path) > 1 and path[-1] in _TP_LEAVES.get(path[-2], ())
 
     def _tree(self, tree, specs, keep=(), path=()):
         if isinstance(tree, dict):
@@ -895,7 +862,7 @@ def _hidden(params, batch, cfg: ModelConfig, device, mesh):
         layers = _unstack(params["layers"], cfg.n_layers)
         if use is not None:
             layers = [use.layer(lp, "layers") for lp in layers]
-        x = _scan_mamba(x, layers, cfg)
+        x = _scan_mamba(x, layers, cfg, mesh=mesh)
     elif fam == "hybrid":
         x = _hybrid(x, params, cfg, positions, use=use)
     else:

@@ -7,7 +7,8 @@ through `repro_torch.launch.mesh.spawn`).
   left fold of every rank's operand in row-major rank order, on every
   rank of a (2, 2) ("data", "model") mesh: f32 and bf16, shapes (),
   (3,), (5, 7) and (1000,), over ("model",), ("data", "model") and
-  ("model", "data").
+  ("model", "data"). `sharding.regroup_model` (one all-to-all of uneven
+  blocks) on the same four ranks as (1, 4): pieces and gradients exact.
 * On the (1, 2) mesh, `models.model.loss_fn` and its per-leaf gradients
   (gathered from each rank's shards) against the port's meshless
   `loss_fn` and the reference's (``jax.value_and_grad``), at the pod
@@ -21,15 +22,27 @@ through `repro_torch.launch.mesh.spawn`).
   every head), with 6 heads over 3 kv heads (whole query heads, but the
   kv heads they read straddle the ranks: cut from the whole k/v,
   gathered as activations), with an odd vocabulary (the LM head and the
-  embedding stay whole), and Granite-34B (one kv head, read by every
-  rank's query heads).
-* The census (`launch.dryrun`, on ``meta``) of a dense smoke prefill and
-  of `loss_fn`'s forward and backward on (1, 2): the bytes received over
-  "model" equal the closed form of their activation sums and gathers
-  (`_model_bytes`), and the only all-gathers over "model" are the sums'
-  second phases and the logits' gather; no whole-leaf gather over
-  "model" in a Track-B train step's census on (1, 2), nor in Qwen1.5-4B's
-  ``decode_32k`` on (16, 16), which receives under 0.1 GB over "model".
+  embedding stay whole), Granite-34B (one kv head, read by every
+  rank's query heads); DeepSeek-V3 (one dense and one MoE MLA layer, 4
+  heads: MLA on the rank's heads), the same with 3 heads (``w_uq``'s
+  columns split but not into whole heads, ``w_uk``/``w_uv`` whole: q
+  gathered as an activation); Mamba2 (8 SSM heads: the rank's heads, its
+  [z | x] block of ``w_zx`` exchanged into its z and x, the conv
+  channels of the decode cache not aligned with them), the same at
+  d_model 96 and head dim 64 (3 heads: z and x gathered as activations,
+  every head on every rank, the rank's rows of the norm and of
+  ``w_out``), the same at d_model 32 (the 32 training tokens are as many
+  as d: ``w_zx``'s pieces move as weight columns, not as the product's);
+  Zamba2 (Mamba2 layers and the shared GQA block).
+* The census (`launch.dryrun`, on ``meta``) of a dense smoke prefill, of
+  `loss_fn`'s forward and backward and of a Mamba2 smoke prefill on
+  (1, 2): the bytes received over "model" equal the closed form of their
+  activation sums, gathers and ``w_zx``'s exchange (`_model_bytes`);
+  no whole-leaf gather over "model" in the Track-B train steps and
+  decode steps of the dense, DeepSeek, Mamba2 and Zamba2 smoke configs
+  on (1, 2), nor in ``decode_32k`` of Qwen1.5-4B, Mamba2-780M and
+  Zamba2-1.2B on (16, 16), each of which receives under 0.1 GB over
+  "model".
 """
 import concurrent.futures
 import dataclasses
@@ -54,6 +67,7 @@ from repro_torch.launch import dryrun as DR  # noqa: E402
 from repro_torch.launch import mesh as MESH  # noqa: E402
 from repro_torch.launch import sharding as SH  # noqa: E402
 from repro_torch.launch import specs as SP  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 
 SPAWN_TIMEOUT_S = 120.0
@@ -69,6 +83,12 @@ TP_CASES = {
                                          n_kv_heads=3)),
     "qwen_odd_vocab": ("qwen1p5_4b", dict(n_layers=2, vocab=511)),
     "granite": ("granite_34b", dict(n_layers=2)),
+    "deepseek": ("deepseek_v3_671b", dict(n_layers=2)),
+    "deepseek_3_heads": ("deepseek_v3_671b", dict(n_layers=2, n_heads=3)),
+    "mamba2": ("mamba2_780m", {}),
+    "mamba2_3_heads": ("mamba2_780m", dict(d_model=96, ssm_head_dim=64)),
+    "mamba2_narrow": ("mamba2_780m", dict(d_model=32, ssm_head_dim=16)),
+    "zamba2": ("zamba2_1p2b", {}),
 }
 META = torch.device("meta")
 
@@ -231,6 +251,20 @@ def test_sum_axis_is_the_old_fold_bit_for_bit(world, i):
             assert torch.equal(new, first)
 
 
+@pytest.mark.parametrize("i", range(len(RK.REGROUP_GROUPS)),
+                         ids=[f"{g}-segments" for g in RK.REGROUP_GROUPS])
+def test_regroup_model_moves_pieces_and_gradients(world, i):
+    """`sharding.regroup_model` on four "model" ranks: each rank's
+    contiguous block of a leaf of 2 or 3 segments becomes its piece of
+    every segment, and each piece's gradient goes back to the rank that
+    stores it, exactly."""
+    for r, res in enumerate(world[0]):
+        case = res["regroup"][i]
+        want = RK.regroup_case(r, len(world[0]), RK.REGROUP_GROUPS[i])
+        assert torch.equal(case["got"], want["want"]), r
+        assert torch.equal(case["grad"], want["want_grad"]), r
+
+
 # ---------------------------------------------------------------------------
 # Loss, gradients, decode and prefill on (1, 2)
 # ---------------------------------------------------------------------------
@@ -349,25 +383,79 @@ def _model_gathers(monkeypatch) -> list:
     return seen
 
 
+def test_census_mamba2_model_bytes_are_the_closed_form():
+    """Mamba2's smoke config (8 SSM heads, d_inner 256) on (1, 2), f32,
+    batch 2 × 16: a prefill receives over "model" the vocab-parallel
+    embedding's sum of [B, S, d]; per layer the other rank's piece of
+    ``x @ w_zx``, its [B, S, d_inner / 2] block of z or of x (the B·S
+    tokens are fewer than d, so the product's pieces move, not the
+    weight's: `regroup_model`), the gated norm's sum of its [B, S, 1] f32
+    sums of squares and the sum of ``w_out``'s f64 partial products
+    [B, S, d]; and the last position's logits gathered ([B, V/2] from the
+    other rank). The exchange is the only all-to-all-v."""
+    cfg = TC.get("mamba2_780m").smoke()
+    n, d, v, L = 2, cfg.d_model, cfg.vocab, cfg.n_layers
+    assert B * S < d
+    zx_piece = B * S * (cfg.d_inner // n) * 4
+    want = (_sum_bytes(B * S * d, 4, n)
+            + L * (zx_piece + _sum_bytes(B * S, 4, n)
+                   + _sum_bytes(B * S * d, 8, n))
+            + (n - 1) * B * (v // n) * 4)
+    mesh = MESH.census_mesh((1, n), ("data", "model"))
+    DR.census(cfg, dict(kind="prefill", seq=S, batch=B), mesh)
+    assert _model_bytes(mesh.census) == want
+    assert _ops(mesh.census, "all-to-all-v") == L
+    assert _ops(mesh.census, "all-gather") == _ops(mesh.census,
+                                                   "all-to-all") + 1
+
+
+def _model_gathers(monkeypatch) -> list:
+    """Shapes of the leaves `sharding.gather_leaf` gathers over "model"
+    from here on."""
+    seen = []
+    orig = SH.gather_leaf
+
+    def gather_leaf(local, spec, mesh):
+        if "model" in SH.spec_axes(spec):
+            seen.append(tuple(local.shape))
+        return orig(local, spec, mesh)
+
+    monkeypatch.setattr(SH, "gather_leaf", gather_leaf)
+    return seen
+
+
+# the production decodes (rank 0 of (16, 16)) and the "model" bytes a step
+# their leaves' gathers received before tensor parallelism (census (meta,
+# CPU), PERF.md §5): the mesh receives far less now
+NO_GATHER_DECODES = {"qwen1p5_4b": 5.0e9, "mamba2_780m": 0.88e9,
+                     "zamba2_1p2b": 1.24e9}
+
+
 def test_no_leaf_is_gathered_over_model(monkeypatch):
-    """A Track-B train step and a decode step of the dense smoke config on
-    (1, 2), and Qwen1.5-4B's ``decode_32k`` at full width on (16, 16),
+    """A Track-B train step and a decode step of the dense, DeepSeek,
+    Mamba2 and Zamba2 smoke configs on (1, 2), and ``decode_32k`` of
+    Qwen1.5-4B, Mamba2-780M and Zamba2-1.2B at full width on (16, 16),
     rank 0: every leaf the specs split over "model" is used as the rank's
-    block; the production decode receives under 0.1 GB over "model"."""
+    block; each production decode receives under 0.1 GB over "model"
+    (against 0.88–5.0 GB a step when the leaves were gathered)."""
     seen = _model_gathers(monkeypatch)
-    arch, over = TP_CASES["granite"]
-    cfg = dataclasses.replace(TC.get(arch).smoke(), **over)
-    for cell in (dict(kind="train", seq=S, batch=B),
-                 dict(kind="decode", seq=SEQ, batch=B)):
-        DR.census(cfg, cell, MESH.census_mesh((1, 2), ("data", "model")))
-    mesh = MESH.census_mesh((16, 16), ("data", "model"))
-    DR.census(TC.get("qwen1p5_4b"), "decode_32k", mesh)
-    assert seen == []
-    assert _model_bytes(mesh.census) < 1e8
+    for name in ("granite", "deepseek", "mamba2", "zamba2"):
+        arch, over = TP_CASES[name]
+        cfg = dataclasses.replace(TC.get(arch).smoke(), **over)
+        for cell in (dict(kind="train", seq=S, batch=B),
+                     dict(kind="decode", seq=SEQ, batch=B)):
+            DR.census(cfg, cell, MESH.census_mesh((1, 2), ("data",
+                                                           "model")))
+        assert seen == [], name
+    for arch, before in NO_GATHER_DECODES.items():
+        mesh = MESH.census_mesh((16, 16), ("data", "model"))
+        DR.census(TC.get(arch), "decode_32k", mesh)
+        assert seen == [], arch
+        assert _model_bytes(mesh.census) < min(1e8, before / 10), arch
     # the cache splits the sequence over "model" (20 kv heads do not
     # divide 16): q, k and v are gathered there, never wq/wk/wv
-    assert SP.cache_specs(TC.get("qwen1p5_4b"), mesh, 128, 32768)[
-        "layers"]["k"][2] == "model"
+    assert SP.cache_specs(TC.get("qwen1p5_4b"), MESH.abstract_mesh(
+        (16, 16), ("data", "model")), 128, 32768)["layers"]["k"][2] == "model"
 
 
 @pytest.mark.parametrize("dt", ["bfloat16", "float32"])
@@ -383,12 +471,12 @@ def test_row_parallel_partials_stay_wide(dt):
     w = torch.randn(40, 24, generator=g).to(dtype)
     up = torch.randn(2, 3, 24, generator=g).to(dtype)
     y1, w1 = y.clone().requires_grad_(True), w.clone().requires_grad_(True)
-    out = TM._WideMatmul.apply(y1, w1)
+    out = TL.WideMatmul.apply(y1, w1)
     assert out.dtype == wide
     assert torch.equal(out, torch.matmul(y.to(wide), w.to(wide)))
     out.backward(up.to(wide))
     y2, w2 = y.clone().requires_grad_(True), w.clone().requires_grad_(True)
     torch.matmul(y2, w2).backward(up)
     assert torch.equal(y1.grad, y2.grad) and torch.equal(w1.grad, w2.grad)
-    meta = TM._WideMatmul.apply(y.to(META), w.to(META))
+    meta = TL.WideMatmul.apply(y.to(META), w.to(META))
     assert meta.dtype == wide and meta.shape == out.shape

@@ -3,7 +3,10 @@
 
 * `sum_rank` (4 ranks, the ("data", "model") mesh (2, 2)): `Mesh.sum_axis`
   and the all-gather fold it replaced (`old_fold`) on every rank's seeded
-  tensor, for each dtype, shape and axis order of ``SUM_CASES``.
+  tensor, for each dtype, shape and axis order of ``SUM_CASES``; then, on
+  the mesh (1, 4), `sharding.regroup_model` of each rank's contiguous
+  block of a leaf of ``groups`` segments (``REGROUP_GROUPS``) and the
+  gradient it sends back (`regroup_case`).
 * `tp_rank` (2 ranks, the mesh (1, 2)): per case, the loss and the
   gathered per-leaf gradients of `models.model.loss_fn` on this rank's
   shards, and, for the decoding cases, the logits of a few
@@ -32,6 +35,8 @@ SUM_CASES = [(dt, shape, axes)
              for shape in ((), (3,), (5, 7), (1000,))
              for axes in (("model",), ("data", "model"), ("model", "data"))]
 TP_SHAPE, TP_NAMES = (1, 2), ("data", "model")
+REGROUP_GROUPS = (2, 3)
+REGROUP_ROWS, REGROUP_PIECE = 5, 3
 
 
 def sum_input(rank: int, dtype: str, shape: tuple) -> torch.Tensor:
@@ -51,6 +56,33 @@ def old_fold(mesh, x: torch.Tensor, axes) -> torch.Tensor:
     for p in parts[1:]:
         acc = acc + p
     return acc
+
+
+def regroup_case(rank: int, world: int, groups: int, regroup=None) -> dict:
+    """A [rows, groups·world·q] leaf W and an upstream gradient U (seeded
+    integers, exact in f32): this rank's contiguous block of W through
+    ``regroup`` (`sharding.regroup_model` on a mesh of ``world`` "model"
+    ranks) and back with U's block of every segment as the gradient of
+    its output; the output and the block's gradient, and what they must
+    be (rank r's q columns of each segment; U's contiguous block)."""
+    q, seg = REGROUP_PIECE, REGROUP_PIECE * world
+    rng = np.random.default_rng(7 + groups)
+    w, u = (torch.from_numpy(rng.integers(-50, 50, (
+        REGROUP_ROWS, groups * seg)).astype(np.float32)) for _ in range(2))
+    blk = groups * q
+
+    def mine(t):
+        return torch.cat([t[:, g * seg + rank * q:g * seg + (rank + 1) * q]
+                          for g in range(groups)], dim=1)
+
+    out = {"want": mine(w), "want_grad": u[:, rank * blk:(rank + 1) * blk]}
+    if regroup is not None:
+        local = w[:, rank * blk:(rank + 1) * blk].clone().requires_grad_(
+            True)
+        got = regroup(local)
+        (got * mine(u)).sum().backward()
+        out.update(got=got.detach(), grad=local.grad)
+    return out
 
 
 def _setup(rank, world, store):
@@ -73,6 +105,10 @@ def sum_rank(rank: int, world: int, store: str, out: str) -> None:
     for dt, shape, axes in SUM_CASES:
         x = sum_input(rank, dt, shape)
         res["sums"].append((mesh.sum_axis(x, axes), old_fold(mesh, x, axes)))
+    from repro_torch.launch import sharding as SH
+    row = MESH.make_mesh((1, world), SUM_NAMES, "cpu")
+    res["regroup"] = [regroup_case(rank, world, g, lambda t, g=g: (
+        SH.regroup_model(t, g, row))) for g in REGROUP_GROUPS]
     _finish(out, rank, res)
 
 

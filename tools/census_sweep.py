@@ -4,10 +4,12 @@ default variant) on (16, 16) and (2, 16, 16), with the bytes a rank
 receives per set of mesh axes and the leaves gathered over "model".
 
     python3 tools/census_sweep.py --out census.json [--src DIR] [--jobs 4]
+        [--arch ID ...]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is counted (this
 checkout's by default; another commit unpacked with ``git archive`` to
-compare two trees). Per cell: status (and the reference's ``why`` for a
+compare two trees); ``--arch`` keeps only the named archs' cells. Per
+cell: status (and the reference's ``why`` for a
 skipped one), peak bytes, flops, the bytes received in one step in all
 and per set of live axes (summed from the mesh's `CollectiveCensus`
 calls, which every tree records with their axes), and each whole-leaf
@@ -86,6 +88,8 @@ def main(argv=None) -> None:
     ap.add_argument("--out", required=True)
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--jobs", type=int, default=4)
+    ap.add_argument("--arch", nargs="*", default=None,
+                    help="arch ids to keep (all by default)")
     args = ap.parse_args(argv)
     src = os.path.abspath(args.src)
     sys.path.insert(0, src)
@@ -93,8 +97,9 @@ def main(argv=None) -> None:
     from repro_torch.launch import specs as S
     # the long cells first, so the pool ends together
     cost = {"prefill_32k": 0, "train_4k": 1, "decode_32k": 2, "long_500k": 3}
+    archs = args.arch or configs.ARCH_IDS
     cells = sorted(((a, s, mp) for mp in (False, True)
-                    for a in configs.ARCH_IDS for s in S.SHAPES),
+                    for a in archs for s in S.SHAPES),
                    key=lambda c: cost[c[1]])
     t0 = time.perf_counter()
     ctx = multiprocessing.get_context("spawn")
